@@ -1,0 +1,231 @@
+"""Tree utilities on nested dicts, lists and tuples of tensors.
+
+The AsyncFedED protocol operates on whole parameter trees: pseudo-gradients,
+Euclidean distances between model versions, and scaled AXPY updates. These
+helpers are the plain-torch layer; the flat-state kernels live in
+``repro_torch.kernels.fedagg``.
+
+Leaf order is the JAX package's (``jax.tree.flatten``): dict keys sorted at
+every level, lists and tuples in order. A flat vector built here is therefore
+the reference's vector element for element, which is what lets one config,
+one checkpoint layout and one test input drive both packages.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+PyTree = Any
+#: structure of a tree: None for a leaf, else (kind, keys, children)
+TreeDef = Any
+
+
+def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
+    """Leaves in ``jax.tree.flatten`` order, and the structure to rebuild."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            return (type(node).__name__, len(node),
+                    tuple(walk(c) for c in node))
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, keys, children = d
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(keys, children)}
+        out = [build(c) for c in children]
+        return tuple(out) if kind == "tuple" else out
+
+    return build(treedef)
+
+
+def tree_leaves(tree: PyTree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_structure(tree: PyTree) -> TreeDef:
+    return tree_flatten(tree)[1]
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_leaves(r) for r in rest]
+    return tree_unflatten(treedef, [fn(*ls) for ls in zip(leaves, *others)])
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    """a - b, leafwise."""
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_scale(a: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x: PyTree, y: PyTree) -> PyTree:
+    """alpha * x + y, leafwise (the Eq.(5) server update)."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def _sum_f32(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Left fold of per-leaf f32 sums from 0, as the reference reduces."""
+    acc = torch.zeros((), dtype=torch.float32, device=parts[0].device)
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
+def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
+    """Sum of elementwise products over all leaves, accumulated in f32."""
+    return _sum_f32([torch.sum(x.float() * y.float())
+                     for x, y in zip(tree_leaves(a), tree_leaves(b))])
+
+
+def tree_sq_norm(a: PyTree) -> torch.Tensor:
+    """Squared l2 norm over every leaf, accumulated in f32."""
+    return _sum_f32([torch.sum(torch.square(x.float()))
+                     for x in tree_leaves(a)])
+
+
+def tree_norm(a: PyTree) -> torch.Tensor:
+    return torch.sqrt(tree_sq_norm(a))
+
+
+def tree_sq_dist(a: PyTree, b: PyTree) -> torch.Tensor:
+    return _sum_f32([torch.sum(torch.square(x.float() - y.float()))
+                     for x, y in zip(tree_leaves(a), tree_leaves(b))])
+
+
+def tree_dist(a: PyTree, b: PyTree) -> torch.Tensor:
+    return torch.sqrt(tree_sq_dist(a, b))
+
+
+def tree_zeros_like(a: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_size(a: PyTree) -> int:
+    return int(sum(l.numel() for l in tree_leaves(a)))
+
+
+def tree_bytes(a: PyTree) -> int:
+    return int(sum(l.numel() * l.element_size() for l in tree_leaves(a)))
+
+
+def tree_cast(a: PyTree, dtype) -> PyTree:
+    return tree_map(lambda x: x.to(dtype), a)
+
+
+def tree_flatten_to_vector(a: PyTree) -> torch.Tensor:
+    """Concatenate all leaves into one flat f32 vector (kernel layout)."""
+    return torch.cat([l.reshape(-1).float() for l in tree_leaves(a)])
+
+
+def tree_unflatten_from_vector(vec: torch.Tensor, like: PyTree) -> PyTree:
+    """Inverse of :func:`tree_flatten_to_vector` against a template tree."""
+    leaves, treedef = tree_flatten(like)
+    out, off = [], 0
+    for l in leaves:
+        n = l.numel()
+        out.append(vec[off:off + n].reshape(l.shape).to(l.dtype))
+        off += n
+    return tree_unflatten(treedef, out)
+
+
+class FlatSpec:
+    """Cached flatten/unflatten spec for a fixed tree structure.
+
+    Flattening a tree for the fedagg kernels means: ravel every leaf to
+    f32, concatenate, and zero-pad to a multiple of ``block`` (a layout
+    constant of the flat state, 65536 for the server). ``FlatSpec``
+    captures the structure, leaf shapes/dtypes, the padded length and the
+    device once, so both directions are a single concat/split.
+    """
+
+    __slots__ = ("treedef", "shapes", "dtypes", "sizes", "n", "n_padded",
+                 "block", "device")
+
+    def __init__(self, tree: PyTree, block: int = 1):
+        leaves, self.treedef = tree_flatten(tree)
+        self.shapes = tuple(tuple(l.shape) for l in leaves)
+        self.dtypes = tuple(l.dtype for l in leaves)
+        self.sizes = tuple(l.numel() for l in leaves)
+        self.n = int(sum(self.sizes))
+        self.block = int(block)
+        self.n_padded = self.n + (-self.n) % max(self.block, 1)
+        self.device = leaves[0].device
+
+    def flatten(self, tree: PyTree) -> torch.Tensor:
+        """Tree (matching this spec) -> padded flat f32 vector."""
+        vec = tree_flatten_to_vector(tree)
+        if self.n_padded != self.n:
+            vec = torch.nn.functional.pad(vec, (0, self.n_padded - self.n))
+        return vec
+
+    def unflatten(self, vec: torch.Tensor) -> PyTree:
+        """Padded flat vector -> tree with the original shapes/dtypes.
+        f32 leaves are views of ``vec``: callers must not write into
+        ``vec`` in place while the tree is in use."""
+        out, off = [], 0
+        for shape, dtype, size in zip(self.shapes, self.dtypes, self.sizes):
+            out.append(vec[off:off + size].reshape(shape).to(dtype))
+            off += size
+        return tree_unflatten(self.treedef, out)
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros((self.n_padded,), dtype=torch.float32,
+                           device=self.device)
+
+
+class FlatParams:
+    """A parameter tree held as one padded flat f32 vector.
+
+    The flat-state server (``AsyncFedEDServer(backend="pallas")``) keeps
+    the global model in this form so every Eq.(5-7) step is a kernel sweep
+    over one contiguous vector instead of a walk over the tree. ``tree``
+    materializes the tree view lazily and caches it; the cache is dropped
+    whenever the vector is replaced.
+    """
+
+    __slots__ = ("vec", "spec", "_tree_cache")
+
+    def __init__(self, vec: torch.Tensor, spec: FlatSpec,
+                 tree_cache: Optional[PyTree] = None):
+        assert tuple(vec.shape) == (spec.n_padded,), (vec.shape,
+                                                      spec.n_padded)
+        self.vec = vec
+        self.spec = spec
+        self._tree_cache = tree_cache
+
+    @classmethod
+    def from_tree(cls, tree: PyTree, block: int = 1) -> "FlatParams":
+        spec = FlatSpec(tree, block=block)
+        return cls(spec.flatten(tree), spec, tree_cache=tree)
+
+    @property
+    def tree(self) -> PyTree:
+        if self._tree_cache is None:
+            self._tree_cache = self.spec.unflatten(self.vec)
+        return self._tree_cache
+
+    def replace(self, vec: torch.Tensor) -> "FlatParams":
+        """New FlatParams sharing the spec; invalidates the tree cache."""
+        return FlatParams(vec, self.spec)
