@@ -6,11 +6,14 @@ toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version on the card, times both, runs
-the port's AsyncFedED simulation (``backend="pallas"``, the flat-state
-server) on the paper's three tasks, checks that every aggregation went
-through both kernels, and profiles two of the runs. The line of its
+It builds the port's CUDA kernels from the sources in the checkout (two
+files, one ``nvcc`` each, started together), holds each kernel against its
+plain PyTorch version on the card, times both, runs the port's AsyncFedED
+simulation (``backend="pallas"``, the flat-state server) on the paper's
+three tasks, on the burst-drain scenario synthetic-burst (f32 and bf16
+deltas) and with int8 deltas (synthetic-1-1, femnist), checks that every
+aggregation went through the kernels of its path and that the CUDA event
+traces equal the CPU runs', and profiles two of the runs. The line of its
 standard output before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them, the last line is ``{"ok": true, "device": {...}}``, and every other
@@ -44,9 +47,37 @@ SIZES = (("synthetic-1-1", 65536), ("femnist", 262144),
 #: relative tolerance of the norms kernel against the plain version: the
 #: two sum in different orders, and the error grows with the length
 NORMS_RTOL = {65536: 1e-5, 262144: 1e-5, 131072: 1e-5, 1 << 28: 1e-4}
+#: batched-kernel rows: bursts B at the paper lengths, f32 and bf16 deltas,
+#: and one bandwidth row (B = 8 at 2^26: 17 x 256 MiB of inputs)
+BATCHED = [(b, n) for n in (65536, 262144) for b in (2, 8, 15)]
+BATCHED_BIG = (8, 1 << 26)
+#: norms tolerances for the batched kernel, relative; a cross or Gram term
+#: relative to the product of its two vectors' norms (Cauchy-Schwarz)
+BATCHED_RTOL = {65536: 1e-5, 262144: 1e-5, 1 << 26: 1e-4}
 #: per-task simulation length: (virtual seconds, update cap)
 SIM = {"synthetic-1-1": (10.0, 40), "femnist": (10.0, 30),
        "shakespeare": (10.0, 20)}
+#: runs of the burst and int8 paths: (label, scenario or task, FedConfig
+#: changes, virtual seconds, update cap, compare with a CPU run). The
+#: synthetic-burst runs use the loop engine (the cohort engine is not
+#: ported). Its first burst (of 24) comes after 39 single arrivals, so the
+#: bf16 run takes 40 updates, the fewest that reach it. The long run (all
+#: 10 virtual seconds, 21 bursts) times the drain and checks the launches
+#: but is not compared with a CPU run: at its 51st drain one client's local
+#: training turns a 1e-7 difference in its starting model into a 3.5e-3
+#: difference in its delta (measured on the card, PERF.md), and the two
+#: traces part at update 411.
+PATHS = [("synthetic-burst", "synthetic-burst", dict(client_engine="loop"),
+          10.0, 60, True),
+         ("synthetic-burst-bf16", "synthetic-burst",
+          dict(client_engine="loop", delta_compression="bf16"), 10.0, 40,
+          True),
+         ("synthetic-burst-long", "synthetic-burst",
+          dict(client_engine="loop"), 10.0, 1000, False),
+         ("synthetic-1-1-int8", "synthetic-1-1",
+          dict(backend="pallas", delta_compression="int8"), 10.0, 40, True),
+         ("femnist-int8", "femnist",
+          dict(backend="pallas", delta_compression="int8"), 10.0, 30, False)]
 #: updates of an unmeasured run of each task before its measured one, so
 #: that first-use loading of PyTorch's kernels stays out of the timings
 WARMUP_UPDATES = 3
@@ -125,23 +156,21 @@ def timings(fn, reps: int) -> dict:
     return {"device": device_ms(fn, reps), "call": call_ms(fn, reps)}
 
 
-def rotated_ms(torch, kernel, n: int, g, with_stale: bool) -> float:
-    """Device ms per call of ``kernel`` with its inputs cycled through
+def rotated_ms(fn, make, set_bytes: int) -> float:
+    """Device ms per call of ``fn(*make())`` with its inputs cycled through
     ``ROTATE_BYTES`` of distinct copies, one copy per captured call, so
     that each call reads from device memory and the bytes-over-3.35 TB/s
     bound applies (the outputs may still be written back from L2)."""
-    sets = -(-ROTATE_BYTES // (12 * n))
-    x = torch.randn(sets, n, device="cuda", generator=g)
-    xs = x + 0.01 * torch.randn(sets, n, device="cuda", generator=g)
-    d = 0.05 * torch.randn(sets, n, device="cuda", generator=g)
-    eta = torch.full((), 0.37, device="cuda")
-    it = itertools.cycle(range(sets))
+    sets = [make() for _ in range(-(-ROTATE_BYTES // set_bytes))]
+    it = itertools.cycle(sets)
+    return device_ms(lambda: fn(*next(it)), reps=len(sets))
 
-    def call():
-        i = next(it)
-        return (kernel(x[i], xs[i], d[i]) if with_stale
-                else kernel(x[i], d[i], eta))
-    return device_ms(call, reps=sets)
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: the larger of bytes over the HBM
+    rate and f32 flops over the f32 rate; and which one it is."""
+    b, f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(b, f) * 1e3, ("bytes" if b >= f else "operations")
 
 
 def phase_env(torch) -> str:
@@ -157,11 +186,12 @@ def phase_env(torch) -> str:
 
 def phase_build(fedagg, build) -> None:
     t0 = time.time()
-    fedagg.load_library()
-    ptxas = [l.strip() for l in build.build_log(fedagg.SOURCE).splitlines()
+    fedagg.load_libraries()
+    ptxas = [l.strip() for src in fedagg.SOURCES
+             for l in build.build_log(src).splitlines()
              if "registers" in l or "spill" in l]
     emit({"phase": "build", "seconds": time.time() - t0,
-          "sources": [str(fedagg.SOURCE.relative_to(ROOT))],
+          "sources": [str(src.relative_to(ROOT)) for src in fedagg.SOURCES],
           "ptxas": ptxas})
 
 
@@ -197,7 +227,10 @@ def phase_kernels(torch, fedagg) -> dict:
         k = timings(lambda: fedagg.fedagg_norms(x, xs, d), reps)
         plain = timings(lambda: fedagg.norms_plain(x, xs, d), reps)
         bound = max(nbytes / HBM_BYTES_PER_S, 5 * n / F32_FLOPS_PER_S) * 1e3
-        rot = (rotated_ms(torch, fedagg.fedagg_norms, n, g, True)
+        mk = lambda: (torch.randn(n, device=dev, generator=g),
+                      torch.randn(n, device=dev, generator=g),
+                      torch.randn(n, device=dev, generator=g))
+        rot = (rotated_ms(fedagg.fedagg_norms, mk, 12 * n)
                if n < (1 << 28) else k["device"])
         row = {"phase": "kernel", "name": "fedagg_norms", "size": label,
                "n": n, "max_abs_err": float(err.max()), "max_rel_err": rel,
@@ -229,7 +262,8 @@ def phase_kernels(torch, fedagg) -> dict:
         plain = timings(lambda: fedagg.axpy_plain(x, d, eta), reps)
         lib = timings(lambda: torch.add(x, d, alpha=eta_f), reps)
         bound = max(nbytes / HBM_BYTES_PER_S, 2 * n / F32_FLOPS_PER_S) * 1e3
-        rot = (rotated_ms(torch, fedagg.fedagg_axpy, n, g, False)
+        rot = (rotated_ms(fedagg.fedagg_axpy,
+                          lambda: (*mk()[:2], eta), 12 * n)
                if n < (1 << 28) else k["device"])
         row = {"phase": "kernel", "name": "fedagg_axpy", "size": label,
                "n": n, "max_abs_err": float(err.max()), "max_ulp": ulps,
@@ -249,6 +283,163 @@ def phase_kernels(torch, fedagg) -> dict:
     return main
 
 
+def phase_q_kernels(torch, fedagg, compression) -> dict:
+    """The int8 sweeps against their plain versions at every length of
+    ``SIZES``; returns the rows at the synthetic-1-1 length. Bytes: x_t,
+    x_stale or the output (8), one byte of q and a scale per 1024
+    elements."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(1)
+    main = {}
+    for label, n in SIZES:
+        def make():
+            x = torch.randn(n, device=dev, generator=g)
+            d = 0.05 * torch.randn(n, device=dev, generator=g)
+            d[:fedagg.QBLOCK] = 0.0                 # an all-zero block
+            cd = compression.quantize_vec(d, "int8", n)
+            return x, x + 0.01 * torch.randn(n, device=dev, generator=g), \
+                cd.q, cd.scales
+        x, xs, q, sc = make()
+        eta = torch.full((), 0.37, device=dev)
+        nbytes = 9 * n + 4 * (n // fedagg.QBLOCK)
+        reps = 5 if n >= (1 << 28) else 20
+        big = n >= (1 << 28)
+
+        out = fedagg.fedagg_norms_q(x, xs, q, sc)
+        ref = fedagg.norms_q_plain(x, xs, q, sc)
+        err = (out - ref).abs()
+        rel = float((err / ref.abs()).max())
+        repeat = all(torch.equal(out, fedagg.fedagg_norms_q(x, xs, q, sc))
+                     for _ in range(5))
+        check(rel <= NORMS_RTOL[n], f"norms_q n={n} rel err {rel}")
+        check(repeat, f"norms_q n={n} not bitwise reproducible")
+        k = timings(lambda: fedagg.fedagg_norms_q(x, xs, q, sc), reps)
+        plain = timings(lambda: fedagg.norms_q_plain(x, xs, q, sc), reps)
+        rot = (k["device"] if big else
+               rotated_ms(fedagg.fedagg_norms_q, make, nbytes))
+        bms, by = bound_ms(nbytes, 6 * n)
+        row = {"phase": "kernel", "name": "fedagg_norms_q", "size": label,
+               "n": n, "max_abs_err": float(err.max()), "max_rel_err": rel,
+               "rtol": NORMS_RTOL[n], "bitwise_repeat": repeat,
+               "ms": k["device"], "ms_rotated": rot,
+               "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
+               "gb_per_s_rotated": nbytes / rot / 1e6, "library_ms": None,
+               "call_ms": k["call"], "plain_call_ms": plain["call"]}
+        emit(row)
+        if n == SIZES[0][1]:
+            main["fedagg_norms_q"] = row
+
+        out = fedagg.fedagg_axpy_q(x, q, sc, eta)
+        diff = float((out - fedagg.axpy_q_plain(x, q, sc, eta)).abs().max())
+        check(diff == 0.0, f"axpy_q n={n} max abs err {diff}")
+        k = timings(lambda: fedagg.fedagg_axpy_q(x, q, sc, eta), reps)
+        plain = timings(lambda: fedagg.axpy_q_plain(x, q, sc, eta), reps)
+        rot = (k["device"] if big else rotated_ms(
+            lambda a, b_, c, e: fedagg.fedagg_axpy_q(a, c, e, eta), make,
+            nbytes))
+        bms, by = bound_ms(nbytes, 3 * n)
+        row = {"phase": "kernel", "name": "fedagg_axpy_q", "size": label,
+               "n": n, "max_abs_err": diff, "ms": k["device"],
+               "ms_rotated": rot, "plain_ms": plain["device"],
+               "bound_ms": bms, "bound_by": by,
+               "gb_per_s_rotated": nbytes / rot / 1e6, "library_ms": None,
+               "call_ms": k["call"], "plain_call_ms": plain["call"]}
+        emit(row)
+        if n == SIZES[0][1]:
+            main["fedagg_axpy_q"] = row
+        del x, xs, q, sc, out, ref, err
+        torch.cuda.empty_cache()
+    return main
+
+
+def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
+    """fedagg_norms_batched and fedagg_apply_batched at (B, n) with a
+    ``dtype`` delta, each against its plain version, timed; returns the two
+    rows. Work counted: the norms read x_t, B stales and B deltas and do
+    3B^2 + 4B flops per element (B drifts, B squared drifts, B^2 cross
+    terms, the B(B+1)/2 Gram terms of one triangle, a multiply and an add
+    each); the apply reads x_t and B deltas, writes one vector, and does 2B
+    flops per element."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dbytes = 4 if dtype == torch.float32 else 2
+
+    def make():
+        x = torch.randn(n, device=dev, generator=g)
+        xs = x + 0.01 * torch.randn(b, n, device=dev, generator=g)
+        return x, xs, (0.05 * torch.randn(b, n, device=dev,
+                                          generator=g)).to(dtype)
+    x, xs, d = make()
+    etas = torch.linspace(0.1, 0.9, b, device=dev)
+    big = n > (1 << 20)
+    reps = 5 if big else 20
+    tag = {"B": b, "n": n, "delta": str(dtype).replace("torch.", "")}
+
+    got = fedagg.fedagg_norms_batched(x, xs, d)
+    d0, dn, cross, gram = fedagg.norms_batched_plain(x, xs, d)
+    rtol = BATCHED_RTOL[n]
+    rel = max(float(((got[0] - d0).abs() / d0).max()),
+              float(((got[1] - dn).abs() / dn).max()))
+    scaled = max(
+        float(((got[2] - cross).abs() / (d0[:, None] * dn[None]).sqrt()
+               ).max()),
+        float(((got[3] - gram).abs() / (dn[:, None] * dn[None]).sqrt()
+               ).max()))
+    abs_err = max(float((a - w).abs().max())
+                  for a, w in zip(got, (d0, dn, cross, gram)))
+    again = fedagg.fedagg_norms_batched(x, xs, d)
+    repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+    check(rel <= rtol and scaled <= rtol,
+          f"norms_batched {tag}: rel {rel}, scaled {scaled} > {rtol}")
+    check(repeat, f"norms_batched {tag} not bitwise reproducible")
+    nbytes = 4 * n * (1 + b) + dbytes * b * n
+    k = timings(lambda: fedagg.fedagg_norms_batched(x, xs, d), reps)
+    plain = timings(lambda: fedagg.norms_batched_plain(x, xs, d), reps)
+    rot = k["device"] if big else rotated_ms(fedagg.fedagg_norms_batched,
+                                             make, nbytes)
+    bms, by = bound_ms(nbytes, (3 * b * b + 4 * b) * n)
+    norms = {"phase": "kernel", "name": "fedagg_norms_batched", **tag,
+             "max_abs_err": abs_err, "max_rel_err": rel,
+             "max_scaled_err": scaled, "rtol": rtol,
+             "bitwise_repeat": repeat, "ms": k["device"], "ms_rotated": rot,
+             "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
+             "gb_per_s_rotated": nbytes / rot / 1e6, "library_ms": None,
+             "call_ms": k["call"], "plain_call_ms": plain["call"]}
+
+    out = fedagg.fedagg_apply_batched(x, d, etas)
+    diff = float((out - fedagg.apply_batched_plain(x, d, etas)).abs().max())
+    check(diff == 0.0, f"apply_batched {tag}: max abs err {diff}")
+    nbytes = 8 * n + dbytes * b * n
+    k = timings(lambda: fedagg.fedagg_apply_batched(x, d, etas), reps)
+    plain = timings(lambda: fedagg.apply_batched_plain(x, d, etas), reps)
+    lib = (timings(lambda: torch.addmv(x, d.t(), etas), reps)
+           if dtype == torch.float32 else None)
+    rot = k["device"] if big else rotated_ms(
+        lambda a, b_, c: fedagg.fedagg_apply_batched(a, c, etas), make,
+        nbytes)
+    bms, by = bound_ms(nbytes, 2 * b * n)
+    apply = {"phase": "kernel", "name": "fedagg_apply_batched", **tag,
+             "max_abs_err": diff, "ms": k["device"], "ms_rotated": rot,
+             "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
+             "gb_per_s_rotated": nbytes / rot / 1e6,
+             "library_ms": lib["device"] if lib else None,
+             "call_ms": k["call"], "plain_call_ms": plain["call"],
+             "library_call_ms": lib["call"] if lib else None}
+    del x, xs, d, got, again, out
+    torch.cuda.empty_cache()
+    return norms, apply
+
+
+def phase_batched_kernels(torch, fedagg) -> None:
+    """The batched pair at every (B, n) of ``BATCHED`` with f32 and bf16
+    deltas, and at ``BATCHED_BIG`` with f32."""
+    shapes = [(b, n, dt) for b, n in BATCHED
+              for dt in (torch.float32, torch.bfloat16)]
+    for b, n, dt in shapes + [(*BATCHED_BIG, torch.float32)]:
+        for row in batched_rows(torch, fedagg, b, n, dt):
+            emit(row)
+
+
 def _time_calls(obj, attr: str, acc: list) -> None:
     """Wrap ``obj.attr`` so each call's host seconds land in ``acc``."""
     inner = getattr(obj, attr)
@@ -262,75 +453,180 @@ def _time_calls(obj, attr: str, acc: list) -> None:
     setattr(obj, attr, timed)
 
 
-def phase_sims(torch, fedagg, launches: dict) -> None:
-    """The port's main path on the card: FederatedSimulation with the
-    flat-state server on each paper task. Every launch count is set to 0
-    just before a run and read just after it; ``launches`` sums them.
+def _key(history):
+    return [(r.iteration, r.client_id, r.lag, r.k_next) for r in history]
 
-    Each row splits the run's host time into client training, server
-    aggregation (which ends in the server's one wait on the device per
-    arrival, so it covers the device work) and evaluation. An unmeasured
-    run of ``WARMUP_UPDATES`` updates of the same task comes first, so the
-    timings are of a process that has used every kernel before."""
-    from repro_torch import configs
+
+def run_sim(torch, fedagg, task, fed, max_time: float, max_updates: int,
+            timed: str, compare_cpu: bool):
+    """One measured FederatedSimulation of ``task`` on the card, after an
+    unmeasured run of ``WARMUP_UPDATES`` updates of the same task (so the
+    timings are of a process that has used every kernel before). Every
+    launch count is set to 0 just before the measured run and read just
+    after it. Returns (row, result, drain sizes, launch counts).
+
+    The row splits the run's host time into client training, server work
+    (``timed``: ``on_update`` per aggregation or ``on_update_batch`` per
+    drain; either ends in a wait on the device, so it covers the device
+    work) and evaluation. With ``compare_cpu`` the same run on the CPU from
+    the same initial params must give the same event trace."""
     from repro_torch.core.simulator import FederatedSimulation
     from repro_torch.utils import pytree as pt
+
+    FederatedSimulation(task, fed, "asyncfeded", seed=1, device="cuda").run(
+        max_time=max_time, eval_every=5, max_updates=WARMUP_UPDATES)
+    torch.cuda.synchronize()
+    sim = FederatedSimulation(task, fed, "asyncfeded", seed=0, device="cuda")
+    init = pt.tree_map(lambda t: t.cpu(), sim.server.params)
+    sizes, server_s, client_s, eval_s = [], [], [], []
+    drain = sim.server.on_update_batch
+    sim.server.on_update_batch = lambda ups: sizes.append(len(ups)) or drain(
+        ups)
+    _time_calls(sim.server, timed, server_s)
+    _time_calls(sim, "_eval_point", eval_s)
+    for c in sim.clients:
+        _time_calls(c, "run_local", client_s)
+    fedagg.reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run(max_time=max_time, eval_every=5, max_updates=max_updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in fedagg.KERNELS}
+    row = {"updates": res.total_updates, "aggregations": len(res.history),
+           "drains": res.total_drains, "client_rounds": len(client_s),
+           "max_accuracy": res.max_accuracy(),
+           "final_accuracy": res.points[-1].accuracy, "wall_s": wall,
+           "client_s": sum(client_s), "server_s": sum(server_s),
+           "eval_s": sum(eval_s),
+           f"server_ms_per_{'aggregation' if timed == 'on_update' else 'drain'}":
+               1e3 * sum(server_s) / max(len(server_s), 1),
+           "server_ms_median": 1e3 * statistics.median(server_s or [0]),
+           "launches": counts}
+    check(len(res.history) > 0, f"{task.name}: no aggregation happened")
+    check(bool(torch.isfinite(sim.server._flat.vec).all()),
+          f"{task.name}: non-finite model")
+    if compare_cpu:
+        cpu = FederatedSimulation(task, fed, "asyncfeded", seed=0,
+                                  device="cpu", init_params=init)
+        ref = cpu.run(max_time=max_time, eval_every=5,
+                      max_updates=max_updates)
+        same = _key(res.history) == _key(ref.history)
+        if not same:
+            first = next(i for i, (a, b) in enumerate(
+                zip(_key(res.history), _key(ref.history))) if a != b)
+            row["first_difference"] = {
+                "index": first, "cuda": _key(res.history)[first],
+                "cpu": _key(ref.history)[first],
+                "gamma_cuda": res.history[first].gamma,
+                "gamma_cpu": ref.history[first].gamma}
+        acc_gap = abs(res.points[-1].accuracy - ref.points[-1].accuracy)
+        row.update(cpu_history_identical=same, cpu_acc_gap=acc_gap,
+                   acc_atol=ACC_ATOL)
+        if not same:
+            emit(row)
+        check(same, f"{task.name}: CUDA and CPU event histories differ")
+        check(acc_gap <= ACC_ATOL,
+              f"{task.name}: CUDA vs CPU accuracy gap {acc_gap}")
+    return row, res, sizes, counts, sim
+
+
+def _add(launches: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def phase_sims(torch, fedagg, launches: dict) -> None:
+    """The port's main path on the card: FederatedSimulation with the
+    flat-state server on each paper task, window 0, f32 deltas: every
+    aggregation launches the single-arrival sweeps once and nothing else.
+    ``launches`` sums the counts of every run."""
+    from repro_torch import configs
 
     for name, (max_time, max_updates) in SIM.items():
         task = configs.PAPER_TASKS[name]
         fed = dataclasses.replace(task.fed, backend="pallas")
-        FederatedSimulation(task, fed, "asyncfeded", seed=1,
-                            device="cuda").run(
-            max_time=max_time, eval_every=5, max_updates=WARMUP_UPDATES)
-        torch.cuda.synchronize()
-        sim = FederatedSimulation(task, fed, "asyncfeded", seed=0,
-                                  device="cuda")
-        init = pt.tree_map(lambda t: t.cpu(), sim.server.params)
-        server_s, client_s, eval_s = [], [], []
-        _time_calls(sim.server, "on_update", server_s)
-        _time_calls(sim, "_eval_point", eval_s)
-        for c in sim.clients:
-            _time_calls(c, "run_local", client_s)
-        fedagg.reset_launches()
-        t0 = time.perf_counter()
-        res = sim.run(max_time=max_time, eval_every=5,
-                      max_updates=max_updates)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k.__name__: k.launches for k in fedagg.KERNELS}
+        row, res, _, counts, _ = run_sim(
+            torch, fedagg, task, fed, max_time, max_updates, "on_update",
+            compare_cpu=name == "synthetic-1-1")
         aggs = len(res.history)
-        row = {"phase": "sim", "task": name, "updates": res.total_updates,
-               "aggregations": aggs, "client_rounds": len(client_s),
-               "max_accuracy": res.max_accuracy(),
-               "final_accuracy": res.points[-1].accuracy, "wall_s": wall,
-               "client_s": sum(client_s), "server_s": sum(server_s),
-               "eval_s": sum(eval_s),
-               "server_ms_per_aggregation":
-                   1e3 * sum(server_s) / max(len(server_s), 1),
-               "server_ms_median": 1e3 * statistics.median(server_s or [0]),
-               "launches": counts}
-        check(aggs > 0, f"{name}: no aggregation happened")
-        check(all(v == aggs for v in counts.values()),
+        single = ("fedagg_norms", "fedagg_axpy")
+        check(all(counts[k] == (aggs if k in single else 0) for k in counts),
               f"{name}: launches {counts} != aggregations {aggs}")
-        vec = sim.server._flat.vec
-        check(bool(torch.isfinite(vec).all()), f"{name}: non-finite model")
-        if name == "synthetic-1-1":
-            cpu = FederatedSimulation(task, fed, "asyncfeded", seed=0,
-                                      device="cpu", init_params=init)
-            ref = cpu.run(max_time=max_time, eval_every=5,
-                          max_updates=max_updates)
-            key = lambda h: [(r.iteration, r.client_id, r.lag, r.k_next)
-                             for r in h]
-            same = key(res.history) == key(ref.history)
-            acc_gap = abs(res.points[-1].accuracy - ref.points[-1].accuracy)
-            row.update(cpu_history_identical=same, cpu_acc_gap=acc_gap,
-                       acc_atol=ACC_ATOL)
-            check(same, "synthetic-1-1: CUDA and CPU event histories differ")
-            check(acc_gap <= ACC_ATOL,
-                  f"synthetic-1-1: CUDA vs CPU accuracy gap {acc_gap}")
+        emit({"phase": "sim", "task": name, **row})
+        _add(launches, counts)
+
+
+def phase_paths(torch, fedagg, compression, launches: dict) -> int:
+    """The burst drain and compressed transport on the card (``PATHS``).
+    In a burst run the batched launches must equal the drains of two or
+    more arrivals and the single-arrival launches the drains of one; the
+    bf16 run's batched launches must all take bf16 deltas; an int8 run's
+    int8 launches must equal its aggregations, and one delta must quantize
+    to the same bytes on the card and on the CPU. Returns the median size
+    of the long f32 burst run's multi-arrival drains."""
+    from repro_torch import configs
+    from repro_torch.utils import pytree as pt
+
+    median_b = None
+    for label, base, change, max_time, max_updates, compare in PATHS:
+        task = (configs.SCENARIOS[base] if base in configs.SCENARIOS.names()
+                else configs.PAPER_TASKS[base])
+        fed = dataclasses.replace(task.fed, **change)
+        dtypes = []
+        packed = fedagg.norms_batched_packed
+
+        def record(x_t, x_stales, deltas):
+            if x_t.is_cuda:                   # not the CPU comparison run
+                dtypes.append(str(deltas.dtype))
+            return packed(x_t, x_stales, deltas)
+        fedagg.norms_batched_packed = record
+        try:
+            row, res, sizes, counts, sim = run_sim(
+                torch, fedagg, task, fed, max_time, max_updates,
+                "on_update_batch", compare)
+        finally:
+            fedagg.norms_batched_packed = packed
+        multi = [b for b in sizes if b > 1]
+        hist = {str(b): sizes.count(b) for b in sorted(set(sizes))}
+        row.update(phase="path", run=label, burst_sizes=hist,
+                   batched_delta_dtypes=sorted(set(dtypes)))
+        mode = fed.delta_compression
+        if mode == "int8":
+            aggs = len(res.history)
+            check(not multi, f"{label}: an int8 run drained a burst")
+            check(counts["fedagg_norms_q"] == counts["fedagg_axpy_q"] == aggs
+                  and all(v == 0 for k, v in counts.items()
+                          if not k.endswith("_q")),
+                  f"{label}: launches {counts} != aggregations {aggs}")
+            upd, _ = sim.clients[0].run_local(sim.server.params, 5,
+                                              sim.server.t)
+            vec = pt.FlatSpec(upd.delta, block=fedagg.BLOCK).flatten(
+                upd.delta)
+            gpu = compression.quantize_vec(vec, "int8", vec.numel())
+            cpu = compression.quantize_vec(vec.cpu(), "int8", vec.numel())
+            same_q = (torch.equal(gpu.q.cpu(), cpu.q) and
+                      gpu.scales.cpu().numpy().tobytes()
+                      == cpu.scales.numpy().tobytes())
+            row["quantizer_bytes_equal_cpu"] = same_q
+            check(same_q, f"{label}: int8 bytes differ on CUDA and CPU")
+        else:
+            check(len(multi) > 0, f"{label}: no drain of two or more")
+            check(counts["fedagg_norms_batched"]
+                  == counts["fedagg_apply_batched"] == len(multi),
+                  f"{label}: batched launches {counts} != drains with "
+                  f"B >= 2 ({len(multi)})")
+            check(counts["fedagg_norms"] == counts["fedagg_axpy"]
+                  == len(sizes) - len(multi),
+                  f"{label}: single launches {counts} != drains with B = 1")
+            want = "torch.bfloat16" if mode == "bf16" else "torch.float32"
+            check(dtypes == [want] * len(multi),
+                  f"{label}: batched deltas {sorted(set(dtypes))}, "
+                  f"expected {want}")
+            if label == "synthetic-burst-long":
+                median_b = int(statistics.median_low(multi))
         emit(row)
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+        _add(launches, counts)
+    return median_b
 
 
 def phase_profile(torch) -> None:
@@ -384,32 +680,53 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     try:
+        from repro_torch.core import compression
         from repro_torch.kernels import build
         from repro_torch.kernels.fedagg import fedagg
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the batched plain version needs f32")
 
     smi = phase_env(torch)
     phase_build(fedagg, build)
     main_rows = phase_kernels(torch, fedagg)
+    main_rows.update(phase_q_kernels(torch, fedagg, compression))
+    phase_batched_kernels(torch, fedagg)
     launches: dict = {}
     phase_sims(torch, fedagg, launches)
+    median_b = phase_paths(torch, fedagg, compression, launches)
+    # the batched pair once more at the burst run's median B, n = 65536
+    norms, apply = batched_rows(torch, fedagg, median_b, 65536,
+                                torch.float32, seed=2)
+    for row in (norms, apply):
+        row["main_path"] = True
+        emit(row)
+        main_rows[row["name"]] = row
     phase_profile(torch)
 
-    src = "src/repro_torch/kernels/fedagg/csrc/fedagg.cu"
-    replaces = {"fedagg_norms": "src/repro/kernels/fedagg/fedagg.py:101",
-                "fedagg_axpy": "src/repro/kernels/fedagg/fedagg.py:128"}
+    csrc = "src/repro_torch/kernels/fedagg/csrc/"
+    ref = "src/repro/kernels/fedagg/fedagg.py:"
+    where = {"fedagg_norms": ("fedagg.cu", 101),
+             "fedagg_axpy": ("fedagg.cu", 128),
+             "fedagg_norms_batched": ("fedagg_batched.cu", 178),
+             "fedagg_apply_batched": ("fedagg_batched.cu", 232),
+             "fedagg_norms_q": ("fedagg.cu", 342),
+             "fedagg_axpy_q": ("fedagg.cu", 379)}
     rows = []
     for k in fedagg.KERNELS:
-        r = main_rows[k.__name__]
-        rows.append({"name": k.__name__, "route": "cuda", "source": src,
-                     "replaces": replaces[k.__name__],
-                     "launches": launches[k.__name__], "n": r["n"],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
+        name = k.__name__
+        r = main_rows[name]
+        check(launches[name] > 0, f"{name} was not launched on a path")
+        rows.append({"name": name, "route": "cuda",
+                     "source": csrc + where[name][0],
+                     "replaces": ref + str(where[name][1]),
+                     "launches": launches[name], "n": r["n"],
+                     "B": r.get("B"), "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "check": "ok"})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -6,7 +6,10 @@ mini-batches of its own dataset (Eq. 2), and uploads the pseudo-gradient
 Delta = x_K - x_0 (Eq. 4): momentum 0.5 with per-round lr decay 0.995
 (Appendix B.4). The K batches are drawn in one ``next_stacked(k)`` call,
 which leaves the sampler exactly where k ``next()`` calls would, and are
-moved to the device once.
+moved to the device once. With ``FedConfig.delta_compression`` set, the
+simulator puts each update in wire form through :meth:`Client.compress_update`,
+with an error-feedback residual that carries what the wire lost into the
+client's next delta.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import tasks
+from repro_torch.core import compression, tasks
 from repro_torch.core.server import ClientUpdate
 from repro_torch.utils import pytree as pt
 from repro_torch.utils.device import resolve_device
@@ -72,6 +75,11 @@ class Client:
         self.num_samples = self.task.num_samples(dataset)
         self.round_idx = 0
         self._mu: Optional[PyTree] = None
+        # error-feedback residual: the quantization error of the last
+        # emitted delta, folded into the next one; released when the
+        # client's session ends
+        self._residual: Optional[torch.Tensor] = None
+        self._flatspec: Optional[pt.FlatSpec] = None
 
     def _lr(self) -> float:
         """This round's lr, rounded to f32 as the reference feeds it."""
@@ -92,3 +100,24 @@ class Client:
         upd = ClientUpdate(self.client_id, snapshot_iter, k, delta,
                            self.num_samples)
         return upd, float(loss)
+
+    def compress_update(self, upd: ClientUpdate) -> ClientUpdate:
+        """Put an outgoing update in wire form per ``fed.delta_compression``,
+        folding in (and refreshing) the error-feedback residual. No-op when
+        compression is off or the delta is already compressed."""
+        mode = self.fed.delta_compression
+        if mode == "off" or compression.is_compressed(upd.delta):
+            return upd
+        if self._flatspec is None:
+            self._flatspec = pt.FlatSpec(upd.delta, block=compression.BLOCK)
+        vec = self._flatspec.flatten(upd.delta)
+        if self._residual is not None:
+            vec = vec + self._residual
+        cd = compression.quantize_vec(vec, mode, self._flatspec.n)
+        self._residual = vec - compression.dequantize(cd)
+        return ClientUpdate(upd.client_id, upd.snapshot_iter, upd.k_used,
+                            cd, upd.num_samples)
+
+    def release_residual(self) -> None:
+        """Drop the error-feedback residual (the client's session ended)."""
+        self._residual = None

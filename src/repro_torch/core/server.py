@@ -4,10 +4,11 @@ Servers are pure protocol logic — no clocks, no sockets. The discrete-event
 simulator (repro_torch.core.simulator) drives them. The server works on the
 device its initial params lie on.
 
-This slice has the AsyncFedED server with both backends and both GMIS modes.
-The baseline servers (FedAsync, FedBuff, synchronous FedAvg/FedProx), the
-per-leaf variant, compressed deltas, model sharding and the batched burst
-drain are later slices: :func:`make_server` and the server raise
+This slice has the AsyncFedED server with both backends and both GMIS modes,
+compressed (int8 and bf16) deltas, and the flat backend's batched burst
+drain. The baseline servers (FedAsync, FedBuff, synchronous FedAvg/FedProx),
+the per-leaf variant, model sharding and a burst of int8 deltas on the flat
+backend are later slices: :func:`make_server` and the server raise
 ``NotImplementedError`` for them.
 """
 from __future__ import annotations
@@ -15,10 +16,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import screening
+from repro_torch.core import compression, screening
 from repro_torch.core.adaptive_k import AdaptiveK
 from repro_torch.core.aggregation import (asyncfeded_aggregate,
                                           asyncfeded_aggregate_with_dist)
@@ -69,35 +71,60 @@ class AsyncServer:
     is_async = True
 
     def __init__(self, params: PyTree, fed: FedConfig):
-        if fed.delta_compression != "off":
-            raise NotImplementedError(
-                "compressed delta transport is not ported yet "
-                "(ROADMAP.md A12)")
         self.params = params
         self.fed = fed
         self.t = 1                       # global iteration (paper: x_1 initial)
         self.history: List[UpdateRecord] = []
         # norm screening: None when fed.screen == "off"
         self.screen = screening.make_screen(fed)
+        # built at the first delta a tree path has to (un)flatten
+        self._despec: Optional[pt.FlatSpec] = None
+
+    def _delta_spec(self) -> pt.FlatSpec:
+        """The padded flat layout of a delta, as the clients flatten it."""
+        if self._despec is None:
+            self._despec = pt.FlatSpec(self.params, block=compression.BLOCK)
+        return self._despec
+
+    def _delta_tree(self, delta) -> PyTree:
+        """A delta in tree form, whatever form it arrived in."""
+        if not compression.is_compressed(delta):
+            return delta
+        return self._delta_spec().unflatten(compression.dequantize(delta))
+
+    def _decompress(self, upd: ClientUpdate) -> ClientUpdate:
+        if compression.is_compressed(upd.delta):
+            return dataclasses.replace(upd, delta=self._delta_tree(upd.delta))
+        return upd
+
+    def _delta_vec(self, delta) -> np.ndarray:
+        """The flat delta as host f32 numpy (dequantized when it arrived in
+        wire form): what direction screens consume."""
+        if compression.is_compressed(delta):
+            return compression.dequantize(delta).cpu().numpy()
+        return self._delta_spec().flatten(delta).cpu().numpy()
 
     def _screen_delta(self, upd: ClientUpdate):
         """Screen one arriving delta. Returns ``(upd', verdict, scale,
         raw_norm)``: ``upd'`` carries the clipped delta, or is None when
         the update is rejected; ``raw_norm`` is None when screening is off,
-        so the off path builds records exactly as without screening."""
+        so the off path builds records exactly as without screening. A
+        compressed delta is screened on its DEQUANTIZED norm and clipped in
+        its wire form (exact on int8 scales). Direction screens
+        (``needs_vector``) also receive the flat delta vector."""
         if self.screen is None:
             return upd, "accept", 1.0, None
-        raw = float(pt.tree_norm(upd.delta))
+        raw = compression.delta_norm(upd.delta)
         if getattr(self.screen, "needs_vector", False):
-            vec = pt.tree_flatten_to_vector(upd.delta).cpu().numpy()
-            verdict, scale = self.screen.observe(raw, upd.client_id, vec=vec)
+            verdict, scale = self.screen.observe(
+                raw, upd.client_id, vec=self._delta_vec(upd.delta))
         else:
             verdict, scale = self.screen.observe(raw, upd.client_id)
         if verdict == "reject":
             return None, verdict, 0.0, raw
         if verdict == "clip":
-            upd = dataclasses.replace(upd,
-                                      delta=pt.tree_scale(upd.delta, scale))
+            upd = dataclasses.replace(
+                upd, delta=compression.scale_delta(upd.delta, scale))
         return upd, verdict, scale, raw
 
     def screen_stats(self) -> Optional[dict]:
@@ -140,7 +167,9 @@ class AsyncFedEDServer(AsyncServer):
       padded flat f32 vector (``pt.FlatParams``), the GMIS stores flat
       vectors, and every update is a norms sweep and an AXPY sweep
       (``kernels.fedagg``): hand-written CUDA kernels on the GPU, their
-      plain versions on the CPU.
+      plain versions on the CPU. An int8 delta goes through the int8
+      sweeps, a bf16 one through the f32 sweeps; a burst drained by
+      :meth:`on_update_batch` goes through the batched pair.
     """
 
     name = "asyncfeded"
@@ -215,10 +244,52 @@ class AsyncFedEDServer(AsyncServer):
         self.params = res.params
         return res.gamma, res.eta, res.dist, res.delta_norm, upd.delta
 
+    def _wire_padded(self, cd):
+        """A compressed payload's (q, scales) padded to the server's flat
+        length. Clients pad to BLOCK as the server does, so this only pads
+        a payload built for a shorter layout: appended zero q blocks carry
+        zero scales and dequantize to exactly 0."""
+        n_pad = self._flat.spec.n_padded
+        if cd.q.shape[0] == n_pad:
+            return cd.q, cd.scales
+        q = torch.nn.functional.pad(cd.q, (0, n_pad - cd.q.shape[0]))
+        scales = cd.scales
+        if scales is not None:
+            scales = torch.nn.functional.pad(
+                scales, (0, n_pad // fedagg.QBLOCK - scales.shape[0]))
+        return q, scales
+
     def _aggregate_flat(self, upd: ClientUpdate):
         fed = self.fed
-        d = self._flat.spec.flatten(upd.delta)
-        if self.gmis_mode == "displacement":
+        disp = self.gmis_mode == "displacement"
+        cd = upd.delta if compression.is_compressed(upd.delta) else None
+        if cd is not None and cd.mode == "int8":
+            # q and scales go straight into the int8 kernels, dequantized
+            # in registers
+            q, qscales = self._wire_padded(cd)
+            if disp:
+                new_vec, gamma, eta, dist, dnorm = (
+                    ops.flat_aggregate_displacement_q(
+                        self._flat.vec, self.gmis.displacement(upd.client_id),
+                        q, qscales, self._zeros, lam=fed.lam, eps=fed.eps,
+                        cap=fed.staleness_cap))
+                self.gmis.release(upd.client_id)
+            else:
+                stale, _ = self.gmis.get(upd.snapshot_iter)
+                new_vec, gamma, eta, dist, dnorm = ops.flat_aggregate_q(
+                    self._flat.vec, stale, q, qscales, lam=fed.lam,
+                    eps=fed.eps, cap=fed.staleness_cap)
+            self._flat = self._flat.replace(new_vec)
+            # the ring GMIS ignores the delta; only displacement
+            # accumulators need it in f32
+            d = (compression.dequantize(
+                    dataclasses.replace(cd, q=q, scales=qscales))
+                 if disp else cd)
+            return gamma, eta, dist, dnorm, d
+        # a bf16 payload rides the f32 kernels (upcast on load)
+        d = (self._wire_padded(cd)[0] if cd is not None
+             else self._flat.spec.flatten(upd.delta))
+        if disp:
             new_vec, gamma, eta, dist, dnorm = ops.flat_aggregate_displacement(
                 self._flat.vec, self.gmis.displacement(upd.client_id), d,
                 self._zeros, lam=fed.lam, eps=fed.eps, cap=fed.staleness_cap)
@@ -229,7 +300,9 @@ class AsyncFedEDServer(AsyncServer):
                 self._flat.vec, stale, d, lam=fed.lam, eps=fed.eps,
                 cap=fed.staleness_cap)
         self._flat = self._flat.replace(new_vec)
-        return gamma, eta, dist, dnorm, d
+        # eta * (a bf16 vector) is bf16 in PyTorch and f32 in JAX: the
+        # displacement accumulators take the payload in f32
+        return gamma, eta, dist, dnorm, (d.float() if disp else d)
 
     def _reject_reply(self, upd: ClientUpdate, raw_norm: float
                       ) -> ServerReply:
@@ -251,6 +324,8 @@ class AsyncFedEDServer(AsyncServer):
         if self.backend == "pallas":
             gamma, eta, dist, dnorm, delta = self._aggregate_flat(upd)
         else:
+            # decompressed here: the delta also feeds gmis.on_aggregate
+            upd = self._decompress(upd)
             gamma, eta, dist, dnorm, delta = self._aggregate_pytree(upd)
         # true staleness: tau = t - snapshot at APPLY time, before this
         # update advances the iteration counter
@@ -269,26 +344,92 @@ class AsyncFedEDServer(AsyncServer):
         return ServerReply(self.params, self.t, k_next)
 
     def on_update_batch(self, upds: List[ClientUpdate]) -> List[ServerReply]:
-        """A burst of arrivals. The flat backend's batched drain (one
-        multi-delta sweep pair for the whole burst) is not ported yet, and
-        running it one at a time would give another trace than the
-        reference's, so it raises. The tree backend drains one at a time as
-        the reference does, re-anchoring every drained client at the
-        window's final model."""
-        if len(upds) == 1:
-            return [self.on_update(upds[0])]
-        if self.backend == "pallas":
-            raise NotImplementedError(
-                "the flat backend's burst drain (batch_window > 0) is not "
-                "ported yet (ROADMAP.md A11)")
-        replies = [self.on_update(u) for u in upds]
-        for u in upds:
-            self._register(u.client_id)
-        return [ServerReply(self.params, self.t, r.k_next) for r in replies]
+        """A burst of arrivals. On the flat ring-GMIS server it goes through
+        the batched sweeps, sequential-equivalent to B ``on_update`` calls
+        (``aggregation.sequential_batch_schedule``); screening inside the
+        burst reuses the batched norms (``screen.decide_batch``). A burst of
+        one, the tree backend, displacement GMIS, a burst mixing wire forms
+        and a direction screen drain one at a time and re-register every
+        drained client at the final model. A burst of int8 deltas raises:
+        its kernels are not ported yet (ROADMAP.md B7)."""
+        modes = {u.delta.mode if compression.is_compressed(u.delta)
+                 else "off" for u in upds}
+        if (self.backend != "pallas" or self.gmis_mode != "ring"
+                or len(upds) == 1 or len(modes) > 1
+                or getattr(self.screen, "needs_vector", False)):
+            replies = [self.on_update(u) for u in upds]
+            if len(replies) > 1:
+                # every drained client resumes from the window's final
+                # model: re-anchor its snapshot there (in displacement
+                # mode on_update zeroed it at an intermediate model)
+                for u in upds:
+                    self._register(u.client_id)
+                replies = [ServerReply(self.params, self.t, r.k_next)
+                           for r in replies]
+            return replies
+        fed = self.fed
+        mode = modes.pop()
+        stales = torch.stack([self.gmis.get(u.snapshot_iter)[0]
+                              for u in upds])
+        # the kernel-emitted raw norms feed the screen in arrival order;
+        # its scale factors fold into the schedule
+        screen_fn = (None if self.screen is None else
+                     lambda dns: self.screen.decide_batch(
+                         dns, [u.client_id for u in upds]))
+        if mode == "int8":
+            wires = [self._wire_padded(u.delta) for u in upds]
+            new_vec, etas, gammas, dists, dnorms, scales = (
+                ops.flat_aggregate_batched_q(
+                    self._flat.vec, stales,
+                    torch.stack([q for q, _ in wires]),
+                    torch.stack([s for _, s in wires]), lam=fed.lam,
+                    eps=fed.eps, cap=fed.staleness_cap, screen=screen_fn))
+        else:
+            # "off" flattens trees; "bf16" stacks the payloads, which ride
+            # the f32 kernels
+            deltas = torch.stack([self._wire_padded(u.delta)[0]
+                                  if mode == "bf16"
+                                  else self._flat.spec.flatten(u.delta)
+                                  for u in upds])
+            new_vec, etas, gammas, dists, dnorms, scales = (
+                ops.flat_aggregate_batched(
+                    self._flat.vec, stales, deltas, lam=fed.lam,
+                    eps=fed.eps, cap=fed.staleness_cap, screen=screen_fn))
+        self._flat = self._flat.replace(new_vec)
+        k_nexts = []
+        for i, upd in enumerate(upds):
+            verdict = ("accept" if scales is None
+                       else screening.verdict_of_scale(float(scales[i])))
+            # pre-increment staleness, as in on_update: the server state at
+            # this update's turn in the sequential equivalence
+            lag = self.t - upd.snapshot_iter
+            if verdict == "reject":
+                k_next = self.kctl.get(upd.client_id)
+                self.history.append(UpdateRecord(
+                    self.t, upd.client_id, lag, float("nan"), 0.0,
+                    upd.k_used, k_next, float("nan"), float(dnorms[i]),
+                    "reject"))
+            else:
+                self.t += 1
+                gamma = float(gammas[i])
+                k_next = self.kctl.observe(upd.client_id, gamma)
+                self.history.append(UpdateRecord(
+                    self.t, upd.client_id, lag, gamma, float(etas[i]),
+                    upd.k_used, k_next, float(dists[i]), float(dnorms[i]),
+                    verdict))
+            k_nexts.append(k_next)
+        # no client is handed an intermediate model, so only the final
+        # version enters the GMIS
+        self.gmis.append(self.t, self._gmis_state())
+        for upd in upds:
+            self._register(upd.client_id)
+        return [ServerReply(self.params, self.t, k) for k in k_nexts]
 
     def batch_limit(self) -> Optional[int]:
         if self.backend == "pallas" and self.gmis_mode == "ring":
-            return fedagg.batched_b_max(4)
+            delta_bytes = {"off": 4, "bf16": 2, "int8": 1}[
+                self.fed.delta_compression]
+            return fedagg.batched_b_max(delta_bytes)
         return None
 
     def on_disconnect(self, client_id: int) -> None:

@@ -18,8 +18,9 @@ reference's params as ``init_params``; otherwise a ``torch.Generator``
 seeded with ``seed`` draws them.
 
 This slice runs the asynchronous roster loop with the per-client ``loop``
-engine. Synchronous rounds, the population engine, the cohort engines and
-the adversary are later slices and raise ``NotImplementedError``.
+engine, burst windows and compressed deltas. Synchronous rounds, the
+population engine, the cohort engines and the adversary are later slices
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -94,8 +95,7 @@ class SimResult:
 def _check_supported(fed: FedConfig) -> None:
     for field, default, item in (("population", "off", "A15"),
                                  ("client_engine", "loop", "A14"),
-                                 ("attack", "none", "A13"),
-                                 ("delta_compression", "off", "A12")):
+                                 ("attack", "none", "A13")):
         if getattr(fed, field) != default:
             raise NotImplementedError(
                 f"FedConfig.{field}={getattr(fed, field)!r} is not ported "
@@ -160,16 +160,21 @@ class FederatedSimulation:
     # ------------------------------------------------------- local training --
     def _dispatch(self, loop: EventLoop, now: float,
                   jobs: List[Tuple[Client, ServerReply]]) -> int:
-        """Train a fan-out, then arm one arrival per client. Behavior draws
-        happen after training, in job order, as in the reference. Returns
-        the number of updates dispatched (dropped-out clients count too)."""
+        """Train a fan-out, then arm one arrival per client. Each update is
+        put in wire form at emission, after training and before the queue.
+        Behavior draws happen after training, in job order, as in the
+        reference. Returns the number of updates dispatched (dropped-out
+        clients count too)."""
         updates: List[ClientUpdate] = [
             c.run_local(r.params, r.k_next, r.iteration, self.prox_mu)[0]
             for c, r in jobs]
         for (c, reply), upd in zip(jobs, updates):
+            upd = c.compress_update(upd)
             delay = self.behavior.dispatch(c.client_id, reply.k_next, now)
             if delay is not None:
                 loop.queue.push(now + delay, c.client_id, upd)
+            else:
+                c.release_residual()   # permanent dropout: session over
         return len(jobs)
 
     # ---------------------------------------------------------------- run --

@@ -2,24 +2,30 @@
 
 Two API levels:
 
-* **flat** (``flat_aggregate`` / ``flat_aggregate_displacement``) — operate
-  on already-padded flat f32 vectors. This is the hot path of the flat-state
-  server (``AsyncFedEDServer(backend="pallas")``), which keeps the global
-  model flattened permanently so no per-step tree walk happens.
-* **tree** (``asyncfeded_aggregate_pallas``) — a drop-in replacement for
-  ``repro_torch.core.aggregation.asyncfeded_aggregate`` that flattens and
-  unflattens at the boundary. Used by tests and one-off callers.
+* **flat** (``flat_aggregate``, ``flat_aggregate_batched`` and their
+  displacement and int8 twins) — operate on already-padded flat f32
+  vectors. This is the hot path of the flat-state server
+  (``AsyncFedEDServer(backend="pallas")``), which keeps the global model
+  flattened permanently so no per-step tree walk happens.
+* **tree** (``asyncfeded_aggregate_pallas``,
+  ``asyncfeded_aggregate_batched_pallas``) — drop-in replacements for
+  ``repro_torch.core.aggregation.asyncfeded_aggregate`` that flatten and
+  unflatten at the boundary. Used by tests and one-off callers.
 
-gamma and eta are computed on the device between the two sweeps, so one
-aggregation queues its work without waiting on the host.
+For one arrival gamma and eta are computed on the device between the two
+sweeps, so an aggregation queues its work without waiting on the host. A
+burst waits once: the sequential-equivalence schedule runs on the host
+between its two sweeps.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.aggregation import AggregationResult, gamma_eta_from_sq
+from repro_torch.core.aggregation import (AggregationResult, gamma_eta_from_sq,
+                                          sequential_batch_schedule)
 from repro_torch.kernels.fedagg import fedagg
 from repro_torch.utils import pytree as pt
 
@@ -59,6 +65,74 @@ def flat_aggregate_displacement(x_t: torch.Tensor, disp: torch.Tensor,
     return new, gamma, eta, dist, dnorm
 
 
+def flat_aggregate_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
+                           deltas: torch.Tensor, *, lam: float, eps: float,
+                           cap: float = 0.0, screen=None):
+    """B concurrent arrivals in two sweeps, sequential-equivalent to B
+    one-at-a-time :func:`flat_aggregate` calls (see
+    ``aggregation.sequential_batch_schedule``).
+
+    x_t (n,), x_stales (B, n), deltas (B, n) f32 or bf16, n a BLOCK
+    multiple. One norms-batched launch; one copy of its four outputs,
+    packed in one buffer, to the host; the schedule in f64 on the host;
+    one copy of the etas back; one apply-batched launch. Returns (new_vec,
+    etas, gammas, dists, dnorms, scales): the per-update scalars as f32
+    numpy arrays in arrival order, etas the effective multipliers on the
+    raw deltas.
+
+    ``screen`` (optional) is a norm-screening decider, typically
+    ``NormScreen.decide_batch``, called with the kernel-emitted raw delta
+    norms in arrival order; it returns per-update scale factors (1 accept,
+    (0,1) clip, 0 reject) folded into the schedule. ``scales`` is None when
+    ``screen`` is.
+    """
+    b = deltas.shape[0]
+    packed = fedagg.norms_batched_packed(x_t, x_stales, deltas).cpu().numpy()
+    d0, dn_sq, cross, gram = fedagg.split_batched(packed, b)
+    scales = None
+    if screen is not None:
+        dns = np.sqrt(np.maximum(np.asarray(dn_sq, np.float64), 0.0))
+        scales = screen(dns.astype(np.float32))
+    etas, gammas, dists, dnorms = sequential_batch_schedule(
+        d0, dn_sq, cross, gram, lam=lam, eps=eps, cap=cap, scales=scales)
+    new = fedagg.fedagg_apply_batched(
+        x_t, deltas, torch.from_numpy(etas).to(x_t.device))
+    return new, etas, gammas, dists, dnorms, scales
+
+
+def flat_aggregate_q(x_t: torch.Tensor, x_stale: torch.Tensor,
+                     q: torch.Tensor, scales: torch.Tensor, *, lam: float,
+                     eps: float, cap: float = 0.0):
+    """:func:`flat_aggregate` with the delta in int8 wire form (``q`` (n,),
+    ``scales`` (n // QBLOCK,)), dequantized inside the sweeps. The emitted
+    dnorm is the dequantized delta's norm, exactly what the AXPY applies."""
+    sq = fedagg.fedagg_norms_q(x_t, x_stale, q, scales)
+    gamma, eta, dist, dnorm = gamma_eta_from_sq(sq[0], sq[1], lam, eps, cap)
+    new = fedagg.fedagg_axpy_q(x_t, q, scales, eta)
+    return new, gamma, eta, dist, dnorm
+
+
+def flat_aggregate_displacement_q(x_t: torch.Tensor, disp: torch.Tensor,
+                                  q: torch.Tensor, scales: torch.Tensor,
+                                  zeros: torch.Tensor, *, lam: float,
+                                  eps: float, cap: float = 0.0):
+    """Displacement-GMIS variant of :func:`flat_aggregate_q`."""
+    sq = fedagg.fedagg_norms_q(disp, zeros, q, scales)
+    gamma, eta, dist, dnorm = gamma_eta_from_sq(sq[0], sq[1], lam, eps, cap)
+    new = fedagg.fedagg_axpy_q(x_t, q, scales, eta)
+    return new, gamma, eta, dist, dnorm
+
+
+def flat_aggregate_batched_q(x_t, x_stales, qs, qscales, *, lam: float,
+                             eps: float, cap: float = 0.0, screen=None):
+    """The int8 twin of :func:`flat_aggregate_batched`. Its kernels
+    (``fedagg_norms_batched_q``, ``fedagg_apply_batched_q``) are not ported
+    yet, so an int8 burst raises."""
+    raise NotImplementedError(
+        "an int8 burst needs fedagg_norms_batched_q and "
+        "fedagg_apply_batched_q, which are not ported yet (ROADMAP.md B7)")
+
+
 def asyncfeded_aggregate_pallas(x_t: PyTree, x_stale: PyTree, delta: PyTree,
                                 *, lam: float, eps: float,
                                 cap: float = 0.0) -> AggregationResult:
@@ -68,3 +142,18 @@ def asyncfeded_aggregate_pallas(x_t: PyTree, x_stale: PyTree, delta: PyTree,
         pad(x_t), pad(x_stale), pad(delta), lam=lam, eps=eps, cap=cap)
     new = pt.tree_unflatten_from_vector(new_flat[:pt.tree_size(x_t)], x_t)
     return AggregationResult(new, gamma, eta, dist, dnorm)
+
+
+def asyncfeded_aggregate_batched_pallas(
+        x_t: PyTree, x_stales: Sequence[PyTree], deltas: Sequence[PyTree], *,
+        lam: float, eps: float, cap: float = 0.0
+) -> Tuple[PyTree, Any, Any, Any, Any]:
+    """Batched tree entry point: stacks B (stale, delta) pairs and drains
+    them through the batched sweeps. Returns (new_params, etas, gammas,
+    dists, dnorms)."""
+    spec = pt.FlatSpec(x_t, block=_BLOCK)
+    xs = torch.stack([spec.flatten(t) for t in x_stales])
+    d = torch.stack([spec.flatten(t) for t in deltas])
+    new_flat, etas, gammas, dists, dnorms, _ = flat_aggregate_batched(
+        spec.flatten(x_t), xs, d, lam=lam, eps=eps, cap=cap)
+    return spec.unflatten(new_flat), etas, gammas, dists, dnorms

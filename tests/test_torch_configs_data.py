@@ -18,9 +18,10 @@ from repro_torch.data import pipeline as tpipe
 TASKS = ("synthetic-1-1", "femnist", "shakespeare")
 
 #: modules the port keeps as copies of the reference's
-COPIED = ("utils.registry", "configs.paper_tasks", "data.synthetic",
-          "data.femnist", "data.shakespeare", "data.pipeline", "core.events",
-          "core.behavior", "core.screening", "core.adaptive_k")
+COPIED = ("utils.registry", "configs.paper_tasks", "configs.scenarios",
+          "data.synthetic", "data.femnist", "data.shakespeare",
+          "data.pipeline", "core.events", "core.behavior", "core.screening",
+          "core.adaptive_k")
 
 
 def _code_lines(mod):
@@ -66,6 +67,12 @@ class TestFedConfig:
     def test_paper_task_configs_equal(self, name):
         assert (dataclasses.asdict(TC.PAPER_TASKS[name])
                 == dataclasses.asdict(C.PAPER_TASKS[name]))
+
+    def test_scenario_configs_equal(self):
+        assert TC.SCENARIOS.names() == C.SCENARIOS.names()
+        for name in C.SCENARIOS.names():
+            assert (dataclasses.asdict(TC.SCENARIOS[name])
+                    == dataclasses.asdict(C.SCENARIOS[name])), name
 
 
 def _assert_dataset_equal(a, b):

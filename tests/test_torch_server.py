@@ -1,11 +1,18 @@
 """The port's AsyncFedED server against the reference on the scripted run of
 tests/test_flat_backend.py (three clients, six updates, staleness cap 4),
-for both GMIS modes and both backends, plus the server's own contract.
+for both GMIS modes and both backends, plus the server's own contract, the
+burst drain and compressed deltas.
 
 The reference's flat backend runs its Pallas kernels in interpret mode. The
-inputs are drawn once with jax.random and handed to both packages as numpy.
-Tolerances are the reference's own for its backend parity: params rtol
-1e-5 (atol 1e-6), gamma rtol 1e-4; k_next must be equal.
+inputs are drawn once with jax.random and handed to both packages as numpy;
+a compressed delta is quantized by each package from the same vector (the
+two give the same bytes, tests/test_torch_compression.py). Tolerances are
+the reference's own for its backend parity: params rtol 1e-5 (atol 1e-6),
+gamma rtol 1e-4; k_next and the screen verdicts must be equal. A burst's
+scalars come through the f64 schedule from sums the reference takes with
+XLA's dot (tests/test_torch_fedagg_batched.py): they are held to the
+reference's own tolerance for batch against sequential, rtol 1e-4 on
+params with atol 1e-6.
 """
 import jax
 import numpy as np
@@ -13,13 +20,16 @@ import pytest
 import torch
 
 from repro.configs.base import FedConfig as JFedConfig
+from repro.core import compression as jc
 from repro.core.server import ClientUpdate as JUpdate
 from repro.core.server import make_server as jmake
+from repro.utils import pytree as jpt
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import compression as tc
 from repro_torch.core.server import (AsyncFedEDServer, ClientUpdate,
                                      make_server)
-from repro_torch.kernels.fedagg import fedagg
+from repro_torch.kernels.fedagg import fedagg, ops
 from repro_torch.utils import pytree as pt
 
 
@@ -140,12 +150,22 @@ class TestServerContract:
         assert torch.equal(s1._flat.vec, s2._flat.vec)
 
     def test_flat_burst_drain_not_ported(self):
-        srv = make_server("asyncfeded", self.params(), self.fed(),
+        """The flat burst drain is ported for f32 and bf16 deltas; a burst
+        of int8 deltas needs kernels of ROADMAP.md B7 and raises, leaving
+        the server as it was."""
+        srv = make_server("asyncfeded", self.params(),
+                          self.fed(delta_compression="int8"),
                           backend="pallas")
-        ups = [ClientUpdate(i, 1, 5, params_from_numpy(mk_delta(40 + i), device="cpu"))
-               for i in range(2)]
-        with pytest.raises(NotImplementedError, match="A11"):
+        for i in range(2):
+            srv.on_connect(i)
+        spec = pt.FlatSpec(self.params(), block=fedagg.BLOCK)
+        ups = [ClientUpdate(i, 1, 5, tc.quantize_vec(
+            spec.flatten(params_from_numpy(mk_delta(40 + i), device="cpu")),
+            "int8", spec.n)) for i in range(2)]
+        before = srv._flat.vec
+        with pytest.raises(NotImplementedError, match="B7"):
             srv.on_update_batch(ups)
+        assert srv.t == 1 and srv._flat.vec is before and not srv.history
 
     def test_pytree_burst_drains_sequentially(self):
         srv = make_server("asyncfeded", self.params(), self.fed())
@@ -156,14 +176,17 @@ class TestServerContract:
         replies = srv.on_update_batch(ups)
         assert srv.t == 4 and all(r.iteration == 4 for r in replies)
 
-    def test_batch_limit_is_the_reference_knee(self):
-        srv = make_server("asyncfeded", self.params(), self.fed(),
-                          backend="pallas")
-        ref = jmake("asyncfeded", mk_params(), JFedConfig(),
-                    backend="pallas")
-        assert srv.batch_limit() == ref.batch_limit() == 15
+    @pytest.mark.parametrize("mode,knee", [("off", 15), ("bf16", 20),
+                                           ("int8", 24)])
+    def test_batch_limit_is_the_reference_knee(self, mode, knee):
+        srv = make_server("asyncfeded", self.params(),
+                          self.fed(delta_compression=mode), backend="pallas")
+        ref = jmake("asyncfeded", mk_params(),
+                    JFedConfig(delta_compression=mode), backend="pallas")
+        assert srv.batch_limit() == ref.batch_limit() == knee
         assert make_server("asyncfeded", self.params(),
-                           self.fed()).batch_limit() is None
+                           self.fed(delta_compression=mode)
+                           ).batch_limit() is None
 
     @pytest.mark.parametrize("name", ["fedasync+constant", "fedbuff",
                                       "fedavg", "asyncfeded-perleaf"])
@@ -176,9 +199,17 @@ class TestServerContract:
             make_server("fedsgd", self.params(), self.fed())
 
     def test_compression_not_ported(self):
-        with pytest.raises(NotImplementedError, match="A12"):
-            make_server("asyncfeded", self.params(),
-                        self.fed(delta_compression="int8"))
+        """Compressed transport is ported but for its batched int8 sweeps:
+        both backends take every mode, and the int8 burst op raises
+        naming ROADMAP.md B7."""
+        for mode in tc.MODES:
+            for backend in ("pytree", "pallas"):
+                make_server("asyncfeded", self.params(),
+                            self.fed(delta_compression=mode),
+                            backend=backend)
+        with pytest.raises(NotImplementedError, match="B7"):
+            ops.flat_aggregate_batched_q(None, None, None, None, lam=1.0,
+                                         eps=1.0)
 
     @pytest.mark.parametrize("policy", ["clip", "reject"])
     def test_norm_screen_matches_reference(self, policy):
@@ -199,3 +230,190 @@ class TestServerContract:
         np.testing.assert_allclose([r.eta for r in port.history],
                                    [r.eta for r in ref.history], rtol=1e-4)
 
+
+
+# ------------------------------------------------- bursts and wire forms --
+def both_servers(fed_kw, backend="pallas", gmis_mode="ring"):
+    ref = jmake("asyncfeded", mk_params(), JFedConfig(**fed_kw),
+                gmis_mode=gmis_mode, backend=backend)
+    port = make_server("asyncfeded",
+                       params_from_numpy(jax.tree.map(np.asarray,
+                                                      mk_params()),
+                                         device="cpu"),
+                       FedConfig(**fed_kw), gmis_mode=gmis_mode,
+                       backend=backend)
+    return ref, port
+
+
+def wire(mode, d, ref):
+    """The update's delta as each package sends it: a tree, or the wire
+    form quantized from the padded flat vector."""
+    if ref:
+        if mode == "off":
+            return d
+        spec = jpt.FlatSpec(mk_params(), block=jc.BLOCK)
+        return jc.quantize_vec(spec.flatten(d), mode, spec.n)
+    t = params_from_numpy(d, device="cpu")
+    if mode == "off":
+        return t
+    spec = pt.FlatSpec(t, block=tc.BLOCK)
+    return tc.quantize_vec(spec.flatten(t), mode, spec.n)
+
+
+#: four clients; each inner list is one drain of (client, delta seed,
+#: delta scale). Client 3's second arrival is ten times the others.
+SCRIPT = [[(0, 0, 1.0)], [(1, 1, 1.0)], [(2, 2, 1.0), (3, 3, 1.0),
+                                         (0, 4, 1.0)],
+          [(1, 5, 1.0)], [(3, 6, 10.0), (2, 7, 1.0), (1, 8, 1.0)],
+          [(0, 9, 1.0), (2, 10, 1.0)]]
+
+
+def drive(srv, ref, mode, script=SCRIPT, batched=True):
+    Update = JUpdate if ref else ClientUpdate
+    reply = {i: srv.on_connect(i) for i in range(4)}
+    for drain in script:
+        ups = [Update(c, reply[c].iteration, 5,
+                      wire(mode, mk_delta(seed, 0.05 * scale), ref))
+               for c, seed, scale in drain]
+        if batched:
+            out = srv.on_update_batch(ups)
+        else:
+            out = [srv.on_update(u) for u in ups]
+        for (c, _, _), r in zip(drain, out):
+            reply[c] = r if batched else srv.on_connect(c)
+    return srv
+
+
+def assert_same_run(port, ref, params_rtol=1e-5):
+    key = lambda h: [(r.iteration, r.client_id, r.lag, r.k_used, r.k_next,
+                      r.screen) for r in h]
+    assert key(port.history) == key(ref.history)
+    for field in ("gamma", "eta", "dist", "delta_norm"):
+        np.testing.assert_allclose(
+            [getattr(r, field) for r in port.history],
+            [getattr(r, field) for r in ref.history], rtol=1e-4, atol=1e-7)
+    for a, b in zip(jax.tree.leaves(ref.params),
+                    pt.tree_leaves(port.params)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                   rtol=params_rtol, atol=1e-6)
+    assert port.t == ref.t
+
+
+class TestBurstDrain:
+    @pytest.mark.parametrize("screen", ["off", "clip", "reject"])
+    @pytest.mark.parametrize("mode", ["off", "bf16"])
+    def test_burst_matches_reference(self, mode, screen):
+        """Bursts of three on the flat ring-GMIS server, against the
+        reference's on_update_batch: every record (screen verdicts
+        included) and the model agree, and the bursts went through one
+        batched sweep pair each."""
+        kw = dict(lam=1.0, eps=1.0, delta_compression=mode, screen=screen,
+                  screen_warmup=2)
+        ref, port = both_servers(kw)
+        fedagg.reset_launches()
+        drive(port, False, mode)
+        drive(ref, True, mode)
+        assert_same_run(port, ref, params_rtol=1e-4)
+        assert all(k.launches == 0 for k in fedagg.KERNELS)   # CPU
+        if screen != "off":
+            assert port.history[6].screen == screen
+            assert port.screen.counts == ref.screen.counts
+            assert port.screen.threshold == pytest.approx(
+                ref.screen.threshold, rel=1e-5)
+
+    def test_batch_matches_sequential(self):
+        """Twin of tests/test_flat_backend.py::TestBatchedUpdates::
+        test_batch_matches_sequential: a burst of four equals four
+        on_update calls."""
+        fed = FedConfig(lam=1.0, eps=1.0)
+        srvs = []
+        for _ in range(2):
+            srv = make_server("asyncfeded", params_from_numpy(
+                jax.tree.map(np.asarray, mk_params()), device="cpu"), fed,
+                backend="pallas")
+            for i in range(4):
+                srv.on_connect(i)
+            srvs.append(srv)
+        s_seq, s_bat = srvs
+        ups = [ClientUpdate(i, 1, 5, params_from_numpy(mk_delta(20 + i),
+                                                        device="cpu"))
+               for i in range(4)]
+        for u in ups:
+            s_seq.on_update(u)
+        replies = s_bat.on_update_batch(ups)
+        assert len(replies) == 4
+        for l1, l2 in zip(pt.tree_leaves(s_seq.params),
+                          pt.tree_leaves(s_bat.params)):
+            np.testing.assert_allclose(l1.numpy(), l2.numpy(), rtol=1e-4,
+                                       atol=1e-6)
+        np.testing.assert_allclose([r.gamma for r in s_seq.history],
+                                   [r.gamma for r in s_bat.history],
+                                   rtol=1e-3, atol=1e-6)
+        assert ([r.k_next for r in s_seq.history]
+                == [r.k_next for r in s_bat.history])
+        assert all(r.iteration == s_bat.t for r in replies)
+        # only the final version entered the GMIS
+        assert s_bat.gmis.num_stored == 2
+
+    @pytest.mark.parametrize("case", ["displacement", "cosine", "mixed",
+                                      "pytree"])
+    def test_fallbacks_drain_sequentially(self, case):
+        """Displacement GMIS, a direction screen, a burst mixing wire forms
+        and the tree backend drain one at a time, as the reference does,
+        and re-register every drained client at the final model."""
+        kw = dict(lam=1.0, eps=1.0)
+        backend, gmis_mode, mode = "pallas", "ring", "off"
+        if case == "displacement":
+            gmis_mode = "displacement"
+        elif case == "cosine":
+            kw.update(screen="cosine", screen_warmup=2)
+        elif case == "mixed":
+            kw.update(delta_compression="int8")
+        else:
+            backend = "pytree"
+        ref, port = both_servers(kw, backend=backend, gmis_mode=gmis_mode)
+        if case == "mixed":
+            script = [[(0, 0, 1.0), (1, 1, 1.0)], [(2, 2, 1.0), (3, 3, 1.0)]]
+            for srv, is_ref in ((port, False), (ref, True)):
+                Update = JUpdate if is_ref else ClientUpdate
+                for drain in script:
+                    srv.on_update_batch([
+                        Update(c, 1, 5, wire("int8" if c % 2 else "off",
+                                             mk_delta(seed), is_ref))
+                        for c, seed, _ in drain])
+        else:
+            fedagg.reset_launches()
+            drive(port, False, mode)
+            drive(ref, True, mode)
+            assert fedagg.fedagg_norms_batched.launches == 0
+        assert_same_run(port, ref)
+        if case == "displacement":
+            for i in (0, 2):
+                assert float(port.gmis.distance_from(i, port.t, None)) == 0.0
+
+
+class TestCompressedSequential:
+    @pytest.mark.parametrize("gmis_mode", ["ring", "displacement"])
+    @pytest.mark.parametrize("backend", ["pytree", "pallas"])
+    @pytest.mark.parametrize("mode", ["int8", "bf16"])
+    def test_matches_reference(self, mode, backend, gmis_mode):
+        """The scripted run with compressed deltas, one arrival at a time:
+        the int8 sweeps (or the f32 sweeps on a bf16 payload) on the flat
+        backend, dequantize-then-tree on the tree backend."""
+        kw = dict(lam=1.0, eps=1.0, staleness_cap=4.0, delta_compression=mode)
+        ref, port = both_servers(kw, backend=backend, gmis_mode=gmis_mode)
+        script = [[(c % 4, c, 1.0)] for c in range(8)]
+        drive(port, False, mode, script, batched=False)
+        drive(ref, True, mode, script, batched=False)
+        assert_same_run(port, ref)
+
+    @pytest.mark.parametrize("policy", ["clip", "reject"])
+    def test_screen_on_int8(self, policy):
+        kw = dict(lam=1.0, eps=1.0, delta_compression="int8", screen=policy,
+                  screen_warmup=2)
+        ref, port = both_servers(kw)
+        script = [[(c % 4, c, 10.0 if c == 5 else 1.0)] for c in range(7)]
+        drive(port, False, "int8", script, batched=False)
+        drive(ref, True, "int8", script, batched=False)
+        assert port.history[5].screen == policy
+        assert_same_run(port, ref)

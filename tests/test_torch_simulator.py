@@ -1,7 +1,9 @@
 """The slice as a whole: the port's FederatedSimulation against the
 reference on the paper's main experiment — SYNTHETIC_1_1, asyncfeded, the
 flat-state server (backend="pallas"), seed 0 — with the reference's initial
-params injected, for 30 updates.
+params injected, for 30 updates; then on the burst drain (SYNTHETIC_BURST,
+auto window, loop engine, about 40 updates) and on int8 transport
+(SYNTHETIC_1_1, 30 updates).
 
 The event trace (iteration, client_id, lag, k_next) must be identical: it is
 numpy on both sides, driven only by the adaptive K. gamma and eta agree to
@@ -91,11 +93,16 @@ def test_default_device_needs_cuda():
                                          arrival_rate=1.0),
                                     dict(client_engine="cohort"),
                                     dict(attack="scale", attack_frac=0.1),
-                                    dict(delta_compression="bf16")])
+                                    dict(delta_compression="int8",
+                                         backend="pallas", batch_window=1.0)])
 def test_later_slices_raise(change):
+    """Each later slice raises naming its ROADMAP item: the first three
+    when the simulation is built, an int8 burst (B7) at its first drain of
+    more than one arrival."""
     fed = dataclasses.replace(TC.SYNTHETIC_1_1.fed, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu")
+        FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu").run(
+            max_time=5.0)
 
 
 def test_own_init_runs_and_learns():
@@ -106,3 +113,57 @@ def test_own_init_runs_and_learns():
     assert res.total_updates == len(res.history) > 0
     assert res.max_accuracy() > 0.3
     assert all(np.isfinite(r.gamma) for r in res.history)
+
+
+def _parity_runs(task, ttask, fed, max_updates):
+    """The reference and the port from the reference's init, seed 0; the
+    port's server records the size of every drain."""
+    jsim = JSim(task, fed, "asyncfeded", seed=0)
+    init = jax.tree.map(np.asarray, jsim.server.params)
+    jres = jsim.run(max_time=1e9, max_updates=max_updates)
+    tsim = FederatedSimulation(ttask, fed, "asyncfeded", seed=0,
+                               device="cpu",
+                               init_params=params_from_numpy(init,
+                                                             device="cpu"))
+    sizes = []
+    drain = tsim.server.on_update_batch
+    tsim.server.on_update_batch = lambda ups: sizes.append(len(ups)) or drain(
+        ups)
+    tres = tsim.run(max_time=1e9, max_updates=max_updates)
+    return jres, tres, sizes
+
+
+def _assert_same_trace(jres, tres):
+    key = lambda h: [(r.iteration, r.client_id, r.lag, r.k_used, r.k_next)
+                     for r in h]
+    assert key(tres.history) == key(jres.history)
+    assert (tres.total_updates, tres.total_drains) == (jres.total_updates,
+                                                       jres.total_drains)
+    np.testing.assert_allclose([r.gamma for r in tres.history],
+                               [r.gamma for r in jres.history], rtol=1e-3,
+                               atol=1e-7)
+    np.testing.assert_allclose([p.accuracy for p in tres.points],
+                               [p.accuracy for p in jres.points], atol=0.01)
+
+
+def test_synthetic_burst_trace_identical():
+    """SYNTHETIC_BURST at its published setting (32 clients, poisson-burst
+    arrivals, auto window, flat server) with the loop engine: the port's
+    trace and drain count equal the reference's, and at least one drain
+    went through the batched sweeps."""
+    fed = dataclasses.replace(C.SYNTHETIC_BURST.fed, client_engine="loop")
+    jres, tres, sizes = _parity_runs(C.SYNTHETIC_BURST, TC.SYNTHETIC_BURST,
+                                     fed, 40)
+    _assert_same_trace(jres, tres)
+    assert max(sizes) >= 2 and len(sizes) == tres.total_drains
+
+
+def test_int8_transport_trace_identical():
+    """SYNTHETIC_1_1 with int8 deltas and error feedback through the int8
+    sweeps: the trace equals the reference's for 30 updates."""
+    fed = dataclasses.replace(C.SYNTHETIC_1_1.fed, backend="pallas",
+                              delta_compression="int8")
+    jres, tres, sizes = _parity_runs(C.SYNTHETIC_1_1, TC.SYNTHETIC_1_1, fed,
+                                     30)
+    _assert_same_trace(jres, tres)
+    assert set(sizes) == {1} and len(tres.history) == 30
