@@ -6,14 +6,17 @@ toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout (two
+It builds the port's CUDA kernels from the sources in the checkout (four
 files, one ``nvcc`` each, started together), holds each kernel against its
 plain PyTorch version on the card, times both, runs the port's AsyncFedED
 simulation (``backend="pallas"``, the flat-state server) on the paper's
-three tasks, on the burst-drain scenario synthetic-burst (f32 and bf16
-deltas) and with int8 deltas (synthetic-1-1, femnist), checks that every
-aggregation went through the kernels of its path and that the CUDA event
-traces equal the CPU runs', and profiles two of the runs. The line of its
+three tasks, on the burst-drain scenario synthetic-burst (f32, bf16 and
+int8 deltas) and with int8 deltas (synthetic-1-1, femnist), checks that
+every aggregation went through the kernels of its path and that the CUDA
+event traces equal the CPU runs', profiles two of the runs, serves
+recurrentgemma-2b at full width and depth (every RG-LRU prefill through the
+scan kernel, every attention decode step through the decode kernel), and
+holds the card's logits against the CPU port's at full width. The line of its
 standard output before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them, the last line is ``{"ok": true, "device": {...}}``, and every other
@@ -51,6 +54,8 @@ NORMS_RTOL = {65536: 1e-5, 262144: 1e-5, 131072: 1e-5, 1 << 28: 1e-4}
 #: and one bandwidth row (B = 8 at 2^26: 17 x 256 MiB of inputs)
 BATCHED = [(b, n) for n in (65536, 262144) for b in (2, 8, 15)]
 BATCHED_BIG = (8, 1 << 26)
+#: the int8 burst pair's rows: up to the int8 knee of 24 arrivals
+BATCHED_Q = [(b, n) for n in (65536, 262144) for b in (2, 8, 15, 24)]
 #: norms tolerances for the batched kernel, relative; a cross or Gram term
 #: relative to the product of its two vectors' norms (Cauchy-Schwarz)
 BATCHED_RTOL = {65536: 1e-5, 262144: 1e-5, 1 << 26: 1e-4}
@@ -74,6 +79,11 @@ PATHS = [("synthetic-burst", "synthetic-burst", dict(client_engine="loop"),
           True),
          ("synthetic-burst-long", "synthetic-burst",
           dict(client_engine="loop"), 10.0, 1000, False),
+         # with int8 deltas, from the port's seeded init, the first burst
+         # (24 arrivals) follows 39 single ones, as with f32 deltas
+         ("synthetic-burst-int8", "synthetic-burst",
+          dict(client_engine="loop", delta_compression="int8"), 10.0, 63,
+          True),
          ("synthetic-1-1-int8", "synthetic-1-1",
           dict(backend="pallas", delta_compression="int8"), 10.0, 40, True),
          ("femnist-int8", "femnist",
@@ -87,6 +97,27 @@ ROTATE_BYTES = 128 << 20
 #: eval accuracy agreement, CUDA vs CPU run of synthetic-1-1 (its eval set
 #: holds ~300 rows, so 0.01 is three rows)
 ACC_ATOL = 0.01
+#: the serving slice's kernel rows: rglru_scan at (B, S, W) and
+#: swa_decode_attention at (B, S, H, KV, D, softcap, valid lengths); the
+#: first of each is the recurrentgemma-2b serve shape (prompt 2064 + 16 new
+#: tokens: a full 2048-slot ring), the others a ragged edge and, for the
+#: decode, the short serve run's 48-slot cache and a GQA map with a softcap
+RGLRU_SHAPES = [(4, 2064, 2560), (1, 100, 96)]
+SWA_SHAPES = [(4, 2048, 10, 1, 256, 0.0, (2048,) * 4),
+              (4, 48, 10, 1, 256, 0.0, (33, 40, 47, 30)),
+              (2, 256, 8, 2, 64, 30.0, (200, 256))]
+#: their tolerances against the plain versions, absolute: the scan's carry
+#: across chunks and the decode's merge of pieces sum in other orders
+RGLRU_ATOL = 1e-5
+SWA_ATOL = 1e-5
+#: the serve runs (batch, prompt, new tokens) at full width and depth: the
+#: first wraps the 2048-slot ring, the second leaves slots masked (S = 48)
+SERVE_RUNS = [(4, 2064, 16), (4, 32, 16)]
+#: CUDA against the CPU port: full width, 3 layers (one rglru, rglru, attn
+#: group), batch 1, prompt 64, 8 tokens; the CPU is fed the card's tokens.
+#: Logits agree to 1e-4 of the step's largest |logit| (f32 dense products
+#: of depth 2560-7680 summed in other orders by cuBLAS and the CPU)
+PARITY = dict(num_layers=3, batch=1, prompt=64, gen=8, rtol=1e-4)
 
 
 def emit(obj) -> None:
@@ -184,14 +215,20 @@ def phase_env(torch) -> str:
     return smi
 
 
-def phase_build(fedagg, build) -> None:
+def phase_build(build, fedagg, rglru, swa_attn) -> None:
+    """Every CUDA source of the port, one ``nvcc`` each, started together,
+    then loaded and bound."""
     t0 = time.time()
+    sources = (*fedagg.SOURCES, rglru.SOURCE, swa_attn.SOURCE)
+    build.build_all(sources)
     fedagg.load_libraries()
-    ptxas = [l.strip() for src in fedagg.SOURCES
+    rglru.load_library()
+    swa_attn.load_library()
+    ptxas = [l.strip() for src in sources
              for l in build.build_log(src).splitlines()
              if "registers" in l or "spill" in l]
     emit({"phase": "build", "seconds": time.time() - t0,
-          "sources": [str(src.relative_to(ROOT)) for src in fedagg.SOURCES],
+          "sources": [str(src.relative_to(ROOT)) for src in sources],
           "ptxas": ptxas})
 
 
@@ -430,14 +467,304 @@ def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
     return norms, apply
 
 
-def phase_batched_kernels(torch, fedagg) -> None:
+def batched_q_rows(torch, fedagg, compression, b: int, n: int,
+                   seed: int = 0):
+    """fedagg_norms_batched_q and fedagg_apply_batched_q at (B, n), each
+    against its plain version, timed; returns the two rows. Work counted as
+    in :func:`batched_rows`, with one byte of q per delta element, a scale
+    per 1024 and one more flop (the dequantizing multiply)."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make():
+        x = torch.randn(n, device=dev, generator=g)
+        xs = x + 0.01 * torch.randn(b, n, device=dev, generator=g)
+        d = 0.05 * torch.randn(b, n, device=dev, generator=g)
+        d[:, :fedagg.QBLOCK] = 0.0                  # an all-zero block
+        wires = [compression.quantize_vec(row, "int8", n) for row in d]
+        return (x, xs, torch.stack([w.q for w in wires]),
+                torch.stack([w.scales for w in wires]))
+    x, xs, qs, sc = make()
+    etas = torch.linspace(0.1, 0.9, b, device=dev)
+    big = n > (1 << 20)
+    reps = 5 if big else 20
+    tag = {"B": b, "n": n, "delta": "int8"}
+    qbytes = b * n + 4 * b * (n // fedagg.QBLOCK)
+
+    got = fedagg.fedagg_norms_batched_q(x, xs, qs, sc)
+    d0, dn, cross, gram = fedagg.norms_batched_q_plain(x, xs, qs, sc)
+    rtol = BATCHED_RTOL[n]
+    rel = max(float(((got[0] - d0).abs() / d0).max()),
+              float(((got[1] - dn).abs() / dn).max()))
+    scaled = max(
+        float(((got[2] - cross).abs() / (d0[:, None] * dn[None]).sqrt()
+               ).max()),
+        float(((got[3] - gram).abs() / (dn[:, None] * dn[None]).sqrt()
+               ).max()))
+    abs_err = max(float((a - w).abs().max())
+                  for a, w in zip(got, (d0, dn, cross, gram)))
+    repeat = all(torch.equal(a, c) for a, c in zip(
+        got, fedagg.fedagg_norms_batched_q(x, xs, qs, sc)))
+    check(rel <= rtol and scaled <= rtol,
+          f"norms_batched_q {tag}: rel {rel}, scaled {scaled} > {rtol}")
+    check(repeat, f"norms_batched_q {tag} not bitwise reproducible")
+    nbytes = 4 * n * (1 + b) + qbytes
+    k = timings(lambda: fedagg.fedagg_norms_batched_q(x, xs, qs, sc), reps)
+    plain = timings(lambda: fedagg.norms_batched_q_plain(x, xs, qs, sc),
+                    reps)
+    rot = k["device"] if big else rotated_ms(fedagg.fedagg_norms_batched_q,
+                                             make, nbytes)
+    bms, by = bound_ms(nbytes, (3 * b * b + 5 * b) * n)
+    norms = {"phase": "kernel", "name": "fedagg_norms_batched_q", **tag,
+             "max_abs_err": abs_err, "max_rel_err": rel,
+             "max_scaled_err": scaled, "rtol": rtol,
+             "bitwise_repeat": repeat, "ms": k["device"], "ms_rotated": rot,
+             "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
+             "gb_per_s_rotated": nbytes / rot / 1e6, "library_ms": None,
+             "call_ms": k["call"], "plain_call_ms": plain["call"]}
+
+    out = fedagg.fedagg_apply_batched_q(x, qs, sc, etas)
+    diff = float((out - fedagg.apply_batched_q_plain(x, qs, sc, etas)
+                  ).abs().max())
+    check(diff == 0.0, f"apply_batched_q {tag}: max abs err {diff}")
+    nbytes = 8 * n + qbytes
+    k = timings(lambda: fedagg.fedagg_apply_batched_q(x, qs, sc, etas), reps)
+    plain = timings(lambda: fedagg.apply_batched_q_plain(x, qs, sc, etas),
+                    reps)
+    rot = k["device"] if big else rotated_ms(
+        lambda a, b_, c, e: fedagg.fedagg_apply_batched_q(a, c, e, etas),
+        make, nbytes)
+    bms, by = bound_ms(nbytes, 3 * b * n)
+    apply = {"phase": "kernel", "name": "fedagg_apply_batched_q", **tag,
+             "max_abs_err": diff, "ms": k["device"], "ms_rotated": rot,
+             "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
+             "gb_per_s_rotated": nbytes / rot / 1e6, "library_ms": None,
+             "call_ms": k["call"], "plain_call_ms": plain["call"]}
+    del x, xs, qs, sc, got, out
+    torch.cuda.empty_cache()
+    return norms, apply
+
+
+def phase_batched_kernels(torch, fedagg, compression) -> None:
     """The batched pair at every (B, n) of ``BATCHED`` with f32 and bf16
-    deltas, and at ``BATCHED_BIG`` with f32."""
+    deltas and at ``BATCHED_BIG`` with f32; its int8 twins at every (B, n)
+    of ``BATCHED_Q`` and at ``BATCHED_BIG``."""
     shapes = [(b, n, dt) for b, n in BATCHED
               for dt in (torch.float32, torch.bfloat16)]
     for b, n, dt in shapes + [(*BATCHED_BIG, torch.float32)]:
         for row in batched_rows(torch, fedagg, b, n, dt):
             emit(row)
+    for b, n in BATCHED_Q + [BATCHED_BIG]:
+        for row in batched_q_rows(torch, fedagg, compression, b, n):
+            emit(row)
+
+
+def rglru_row(torch, rglru, b: int, s: int, w: int, seed: int = 3) -> dict:
+    """rglru_scan at (B, S, W) from a starting state, against its plain
+    version, timed. log a_t in [-0.8, 0], the range of the model's gates
+    (8 r log sigmoid(Lambda), a in [0.9, 0.999]). Work: log_at and xi read,
+    h written, h0 read and the last step written; 9 flops per element."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make():
+        return (-0.8 * torch.rand(b, s, w, device=dev, generator=g),
+                torch.randn(b, s, w, device=dev, generator=g),
+                torch.randn(b, w, device=dev, generator=g))
+    la, xi, h0 = make()
+    out, last = rglru.rglru_scan(la, xi, h0)
+    ref, rlast = rglru.rglru_scan_plain(la, xi, h0)
+    err = max(float((out - ref).abs().max()), float((last - rlast).abs().max()))
+    check(err <= RGLRU_ATOL, f"rglru_scan {(b, s, w)}: max abs err {err}")
+    again, _ = rglru.rglru_scan(la, xi, h0)
+    check(torch.equal(out, again), f"rglru_scan {(b, s, w)} not repeatable")
+    nbytes = 12 * b * s * w + 8 * b * w
+    big = nbytes > ROTATE_BYTES // 2
+    k = timings(lambda: rglru.rglru_scan(la, xi, h0), 5 if big else 20)
+    plain = device_ms(lambda: rglru.rglru_scan_plain(la, xi, h0), reps=1,
+                      trials=3)
+    rot = k["device"] if big else rotated_ms(rglru.rglru_scan, make, nbytes)
+    bms, by = bound_ms(nbytes, 9 * b * s * w)
+    return {"phase": "kernel", "name": "rglru_scan", "shape": [b, s, w],
+            "max_abs_err": err, "atol": RGLRU_ATOL, "ms": rot,
+            "ms_l2": k["device"], "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "gb_per_s": nbytes / rot / 1e6,
+            "library_ms": None, "call_ms": k["call"]}
+
+
+def swa_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
+            cap: float, lens, seed: int = 4) -> dict:
+    """swa_decode_attention at (B, S, H, KV, D) with ``lens`` valid slots,
+    against its plain version, timed on inputs cycled through more than the
+    L2 (in a decode step each layer's cache is read once, after the weights
+    have passed through the cache) and on L2-resident ones. Work: q read,
+    the valid slots of K and V read, the output written; 4 flops per valid
+    slot, head and dim, 5 per valid slot and head for the softmax.
+    ``library_ms``: F.scaled_dot_product_attention on the same inputs (its
+    GQA map, a boolean mask for the lengths), where there is no softcap."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def make():
+        return (torch.randn(b, h, d, device=dev, generator=g),
+                torch.randn(b, s, kv, d, device=dev, generator=g),
+                torch.randn(b, s, kv, d, device=dev, generator=g), vl)
+    q, k, v, _ = make()
+    out = swa_attn.swa_decode_attention(q, k, v, vl, cap)
+    ref = swa_attn.swa_decode_plain(q, k, v, vl, cap)
+    err = float((out - ref).abs().max())
+    tag = {"shape": [b, s, h, kv, d], "softcap": cap, "valid_len": list(lens)}
+    check(err <= SWA_ATOL, f"swa_decode_attention {tag}: max abs err {err}")
+    check(torch.equal(out, swa_attn.swa_decode_attention(q, k, v, vl, cap)),
+          f"swa_decode_attention {tag} not repeatable")
+    valid = sum(min(n, s) for n in lens)
+    nbytes = 8 * b * h * d + 8 * valid * kv * d
+    fn = lambda q_, k_, v_, l_: swa_attn.swa_decode_attention(q_, k_, v_, l_,
+                                                              cap)
+    kt = timings(lambda: fn(q, k, v, vl), 20)
+    rot = rotated_ms(fn, make, 4 * b * h * d + 8 * b * s * kv * d)
+    plain = device_ms(lambda: swa_attn.swa_decode_plain(q, k, v, vl, cap))
+    lib = lib_err = None
+    if not cap:
+        qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        mask = (None if min(lens) >= s else
+                (torch.arange(s, device=dev)[None] < vl[:, None])[:, None,
+                                                                  None])
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=h != kv)
+        lib_err = float((sdpa()[:, :, 0] - ref).abs().max())
+        lib = device_ms(sdpa)
+    bms, by = bound_ms(nbytes, valid * h * (4 * d + 5))
+    return {"phase": "kernel", "name": "swa_decode_attention", **tag,
+            "max_abs_err": err, "atol": SWA_ATOL, "ms": rot,
+            "ms_l2": kt["device"], "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "gb_per_s": nbytes / rot / 1e6,
+            "library_ms": lib, "library_max_abs_err": lib_err,
+            "call_ms": kt["call"]}
+
+
+def phase_arch_kernels(torch, rglru, swa_attn) -> dict:
+    """The serving slice's two kernels at ``RGLRU_SHAPES`` and
+    ``SWA_SHAPES``; returns the rows at the serve shapes (the first of
+    each)."""
+    main = {}
+    for shape in RGLRU_SHAPES:
+        row = rglru_row(torch, rglru, *shape)
+        emit(row)
+        main.setdefault("rglru_scan", row)
+    for shape in SWA_SHAPES:
+        row = swa_row(torch, swa_attn, *shape)
+        emit(row)
+        main.setdefault("swa_decode_attention", row)
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_serve(torch, rglru, swa_attn, launches: dict) -> None:
+    """recurrentgemma-2b served at full width and depth in f32 from seeded
+    random weights (``SERVE_RUNS``, after an unmeasured warm-up run): every
+    RG-LRU layer's prefill must launch the scan kernel once and every
+    attention layer's decode step the decode kernel once, the logits must
+    be finite and the tokens in the vocabulary. Then a short run once more
+    under torch.profiler: the device's busy time and idle share."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda:0")
+    cfg = serve.serve_config("recurrentgemma-2b", reduced=False)
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kinds = cfg.layer_kinds
+    serve.generate(params, cfg, serve.make_prompt(cfg, 1, 32, 1, dev), 2)
+    for batch, prompt_len, gen_len in SERVE_RUNS:
+        prompt = serve.make_prompt(cfg, batch, prompt_len, 0, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rglru.rglru_scan.launches = 0
+        swa_attn.swa_decode_attention.launches = 0
+        gen = serve.generate(params, cfg, prompt, gen_len, keep_logits=True)
+        counts = {"rglru_scan": rglru.rglru_scan.launches,
+                  "swa_decode_attention":
+                      swa_attn.swa_decode_attention.launches}
+        peak = torch.cuda.max_memory_allocated()
+        label = f"serve-recurrentgemma-2b-{prompt_len}"
+        check(counts == {"rglru_scan": kinds.count("rglru"),
+                         "swa_decode_attention":
+                             kinds.count("attn") * (gen_len - 1)},
+              f"{label}: launches {counts}")
+        check(all(bool(torch.isfinite(l).all()) for l in gen.logits),
+              f"{label}: non-finite logits")
+        check(tuple(gen.tokens.shape) == (batch, gen_len)
+              and 0 <= int(gen.tokens.min())
+              and int(gen.tokens.max()) < cfg.vocab_size,
+              f"{label}: tokens {gen.tokens.shape}")
+        emit({"phase": "serve", "run": label, "arch": cfg.arch_id,
+              "params": cfg.param_count(), "layers": cfg.num_layers,
+              "dtype": cfg.dtype, "batch": batch, "prompt": prompt_len,
+              "new_tokens": gen_len,
+              "ring_slots": min(cfg.sliding_window, prompt_len + gen_len),
+              "init_s": init_s, "prefill_s": gen.prefill_s,
+              "decode_s": gen.decode_s,
+              "decode_ms_per_step": 1e3 * gen.decode_s / (gen_len - 1),
+              "decode_tok_per_s": batch * (gen_len - 1) / gen.decode_s,
+              "peak_gib": peak / 2 ** 30, "launches": counts,
+              "tokens_row0": gen.tokens[0].tolist()})
+        _add(launches, counts)
+    # the short run's prefill and three decode steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    prompt = serve.make_prompt(cfg, 4, 32, 0, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen = serve.generate(params, cfg, prompt, 4)
+        wall = time.perf_counter() - t0
+    emit({"phase": "profile", "run": "serve-recurrentgemma-2b-32",
+          "new_tokens": 4, "prefill_s": gen.prefill_s,
+          "decode_s": gen.decode_s, **device_summary(prof, wall)})
+    del params, gen
+    torch.cuda.empty_cache()
+
+
+def phase_serve_parity(torch) -> None:
+    """The port on the card against the port on the CPU at full width and
+    ``PARITY``'s depth, from the same weights: the CPU is fed the card's
+    tokens, and every step's logits must agree to ``rtol`` of the step's
+    largest |logit|. Prints how many of the card's tokens the CPU's argmax
+    gives too."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+
+    dev = torch.device("cuda:0")
+    cfg = dataclasses.replace(serve.serve_config("recurrentgemma-2b",
+                                                 reduced=False),
+                              num_layers=PARITY["num_layers"])
+    gparams = M.init_model(torch.Generator(device=dev).manual_seed(1), cfg)
+    cparams = pt.tree_map(lambda t: t.cpu(), gparams)
+    prompt = serve.make_prompt(cfg, PARITY["batch"], PARITY["prompt"], 0, dev)
+    gen = serve.generate(gparams, cfg, prompt, PARITY["gen"],
+                         keep_logits=True)
+    t0 = time.perf_counter()
+    cpu = serve.generate(cparams, cfg, prompt.cpu(), PARITY["gen"],
+                         feed=gen.tokens.cpu(), keep_logits=True)
+    cpu_s = time.perf_counter() - t0
+    errs = [float((a.cpu() - b).abs().max() / b.abs().max())
+            for a, b in zip(gen.logits, cpu.logits)]
+    agree = float((gen.tokens.cpu() == cpu.tokens).float().mean())
+    emit({"phase": "serve_parity", "arch": cfg.arch_id,
+          "params": cfg.param_count(), "layers": cfg.num_layers,
+          "batch": PARITY["batch"], "prompt": PARITY["prompt"],
+          "new_tokens": PARITY["gen"], "max_scaled_err_per_step": errs,
+          "rtol": PARITY["rtol"], "token_agreement": agree,
+          "cpu_s": cpu_s})
+    check(max(errs) <= PARITY["rtol"],
+          f"CUDA vs CPU logits: scaled errors {errs}")
+    del gparams, cparams
+    torch.cuda.empty_cache()
 
 
 def _time_calls(obj, attr: str, acc: list) -> None:
@@ -556,18 +883,19 @@ def phase_sims(torch, fedagg, launches: dict) -> None:
         _add(launches, counts)
 
 
-def phase_paths(torch, fedagg, compression, launches: dict) -> int:
+def phase_paths(torch, fedagg, compression, launches: dict) -> dict:
     """The burst drain and compressed transport on the card (``PATHS``).
-    In a burst run the batched launches must equal the drains of two or
-    more arrivals and the single-arrival launches the drains of one; the
-    bf16 run's batched launches must all take bf16 deltas; an int8 run's
-    int8 launches must equal its aggregations, and one delta must quantize
-    to the same bytes on the card and on the CPU. Returns the median size
-    of the long f32 burst run's multi-arrival drains."""
+    In a run the batched launches must equal the drains of two or more
+    arrivals and the single-arrival launches the aggregations outside them,
+    all of the run's wire form (an int8 run through the int8 twins); the
+    batched launches must all take that run's delta dtype; in an int8 run
+    one delta must quantize to the same bytes on the card and on the CPU.
+    Returns the median burst size of the long f32 run and of the int8 burst
+    run, by label."""
     from repro_torch import configs
     from repro_torch.utils import pytree as pt
 
-    median_b = None
+    bursts = {}
     for label, base, change, max_time, max_updates, compare in PATHS:
         task = (configs.SCENARIOS[base] if base in configs.SCENARIOS.names()
                 else configs.PAPER_TASKS[base])
@@ -575,10 +903,10 @@ def phase_paths(torch, fedagg, compression, launches: dict) -> int:
         dtypes = []
         packed = fedagg.norms_batched_packed
 
-        def record(x_t, x_stales, deltas):
+        def record(x_t, x_stales, deltas, scales=None):
             if x_t.is_cuda:                   # not the CPU comparison run
                 dtypes.append(str(deltas.dtype))
-            return packed(x_t, x_stales, deltas)
+            return packed(x_t, x_stales, deltas, scales)
         fedagg.norms_batched_packed = record
         try:
             row, res, sizes, counts, sim = run_sim(
@@ -591,13 +919,26 @@ def phase_paths(torch, fedagg, compression, launches: dict) -> int:
         row.update(phase="path", run=label, burst_sizes=hist,
                    batched_delta_dtypes=sorted(set(dtypes)))
         mode = fed.delta_compression
+        # the kernels of this wire form: singles through the norms and AXPY
+        # sweeps, drains of two or more through the batched pair
+        q = "_q" if mode == "int8" else ""
+        singles = len(res.history) - sum(multi)
+        check(counts["fedagg_norms_batched" + q]
+              == counts["fedagg_apply_batched" + q] == len(multi),
+              f"{label}: batched launches {counts} != drains with B >= 2 "
+              f"({len(multi)})")
+        check(counts["fedagg_norms" + q] == counts["fedagg_axpy" + q]
+              == singles, f"{label}: single launches {counts} != "
+              f"single aggregations ({singles})")
+        check(all(v == 0 for k, v in counts.items()
+                  if k.endswith("_q") != (mode == "int8")),
+              f"{label}: launches of another wire form: {counts}")
+        want = {"int8": "torch.int8", "bf16": "torch.bfloat16"}.get(
+            mode, "torch.float32")
+        check(dtypes == [want] * len(multi),
+              f"{label}: batched deltas {sorted(set(dtypes))}, expected "
+              f"{want}")
         if mode == "int8":
-            aggs = len(res.history)
-            check(not multi, f"{label}: an int8 run drained a burst")
-            check(counts["fedagg_norms_q"] == counts["fedagg_axpy_q"] == aggs
-                  and all(v == 0 for k, v in counts.items()
-                          if not k.endswith("_q")),
-                  f"{label}: launches {counts} != aggregations {aggs}")
             upd, _ = sim.clients[0].run_local(sim.server.params, 5,
                                               sim.server.t)
             vec = pt.FlatSpec(upd.delta, block=fedagg.BLOCK).flatten(
@@ -609,24 +950,13 @@ def phase_paths(torch, fedagg, compression, launches: dict) -> int:
                       == cpu.scales.numpy().tobytes())
             row["quantizer_bytes_equal_cpu"] = same_q
             check(same_q, f"{label}: int8 bytes differ on CUDA and CPU")
-        else:
+        if base == "synthetic-burst":
             check(len(multi) > 0, f"{label}: no drain of two or more")
-            check(counts["fedagg_norms_batched"]
-                  == counts["fedagg_apply_batched"] == len(multi),
-                  f"{label}: batched launches {counts} != drains with "
-                  f"B >= 2 ({len(multi)})")
-            check(counts["fedagg_norms"] == counts["fedagg_axpy"]
-                  == len(sizes) - len(multi),
-                  f"{label}: single launches {counts} != drains with B = 1")
-            want = "torch.bfloat16" if mode == "bf16" else "torch.float32"
-            check(dtypes == [want] * len(multi),
-                  f"{label}: batched deltas {sorted(set(dtypes))}, "
-                  f"expected {want}")
-            if label == "synthetic-burst-long":
-                median_b = int(statistics.median_low(multi))
+        if label in ("synthetic-burst-long", "synthetic-burst-int8"):
+            bursts[label] = int(statistics.median_low(multi))
         emit(row)
         _add(launches, counts)
-    return median_b
+    return bursts
 
 
 def phase_profile(torch) -> None:
@@ -636,7 +966,6 @@ def phase_profile(torch) -> None:
     work lengthens the wall time, so the idle share is an upper bound.
     Shakespeare is left out: its LSTM launches some 10^5 small kernels per
     client round, and reading back that many events takes minutes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -654,19 +983,27 @@ def phase_profile(torch) -> None:
             sim.run(max_time=max_time, eval_every=5, max_updates=max_updates)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        # device-side events (kernels, copies) with their own time ranges
-        per_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                calls, us = per_name.get(e.name, (0, 0.0))
-                per_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
-        busy = sum(us for _, us in per_name.values()) / 1e6
-        top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]
         emit({"phase": "profile", "task": name, "updates": max_updates,
-              "wall_s": wall, "device_busy_s": busy,
-              "device_idle_share": 1.0 - busy / wall if busy else None,
-              "top": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
-                      for k, (c, us) in top]})
+              **device_summary(prof, wall)})
+
+
+def device_summary(prof, wall: float) -> dict:
+    """From a finished torch.profiler run of ``wall`` host seconds: the sum
+    of the device-side events (kernels, copies), the idle share of the wall
+    time, and the ten names that take the most device time."""
+    from torch.autograd import DeviceType
+
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            calls, us = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in per_name.values()) / 1e6
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall if busy else None,
+            "top": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                    for k, (c, us) in top]}
 
 
 def main() -> int:
@@ -683,6 +1020,8 @@ def main() -> int:
         from repro_torch.core import compression
         from repro_torch.kernels import build
         from repro_torch.kernels.fedagg import fedagg
+        from repro_torch.kernels.rglru import rglru
+        from repro_torch.kernels.swa_attn import swa_attn
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -691,42 +1030,58 @@ def main() -> int:
           "TF32 matmuls are on: the batched plain version needs f32")
 
     smi = phase_env(torch)
-    phase_build(fedagg, build)
+    phase_build(build, fedagg, rglru, swa_attn)
     main_rows = phase_kernels(torch, fedagg)
     main_rows.update(phase_q_kernels(torch, fedagg, compression))
-    phase_batched_kernels(torch, fedagg)
+    phase_batched_kernels(torch, fedagg, compression)
+    main_rows.update(phase_arch_kernels(torch, rglru, swa_attn))
     launches: dict = {}
     phase_sims(torch, fedagg, launches)
-    median_b = phase_paths(torch, fedagg, compression, launches)
-    # the batched pair once more at the burst run's median B, n = 65536
-    norms, apply = batched_rows(torch, fedagg, median_b, 65536,
-                                torch.float32, seed=2)
-    for row in (norms, apply):
+    bursts = phase_paths(torch, fedagg, compression, launches)
+    # the batched pairs once more at their runs' median B, n = 65536
+    rows = (*batched_rows(torch, fedagg, bursts["synthetic-burst-long"],
+                          65536, torch.float32, seed=2),
+            *batched_q_rows(torch, fedagg, compression,
+                            bursts["synthetic-burst-int8"], 65536, seed=2))
+    for row in rows:
         row["main_path"] = True
         emit(row)
         main_rows[row["name"]] = row
     phase_profile(torch)
+    phase_serve(torch, rglru, swa_attn, launches)
+    phase_serve_parity(torch)
 
-    csrc = "src/repro_torch/kernels/fedagg/csrc/"
-    ref = "src/repro/kernels/fedagg/fedagg.py:"
-    where = {"fedagg_norms": ("fedagg.cu", 101),
-             "fedagg_axpy": ("fedagg.cu", 128),
-             "fedagg_norms_batched": ("fedagg_batched.cu", 178),
-             "fedagg_apply_batched": ("fedagg_batched.cu", 232),
-             "fedagg_norms_q": ("fedagg.cu", 342),
-             "fedagg_axpy_q": ("fedagg.cu", 379)}
+    fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
+    fed_ref = "src/repro/kernels/fedagg/fedagg.py:"
+    where = {"fedagg_norms": (fed_csrc + "fedagg.cu", fed_ref + "101"),
+             "fedagg_axpy": (fed_csrc + "fedagg.cu", fed_ref + "128"),
+             "fedagg_norms_batched": (fed_csrc + "fedagg_batched.cu",
+                                      fed_ref + "178"),
+             "fedagg_apply_batched": (fed_csrc + "fedagg_batched.cu",
+                                      fed_ref + "232"),
+             "fedagg_norms_q": (fed_csrc + "fedagg.cu", fed_ref + "342"),
+             "fedagg_axpy_q": (fed_csrc + "fedagg.cu", fed_ref + "379"),
+             "fedagg_norms_batched_q": (fed_csrc + "fedagg_batched.cu",
+                                        fed_ref + "421"),
+             "fedagg_apply_batched_q": (fed_csrc + "fedagg_batched.cu",
+                                        fed_ref + "477"),
+             "rglru_scan": ("src/repro_torch/kernels/rglru/csrc/rglru.cu",
+                            "src/repro/kernels/rglru/rglru.py:49"),
+             "swa_decode_attention": (
+                 "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
+                 "src/repro/kernels/swa_attn/swa_attn.py:61")}
     rows = []
-    for k in fedagg.KERNELS:
+    for k in (*fedagg.KERNELS, *rglru.KERNELS, *swa_attn.KERNELS):
         name = k.__name__
         r = main_rows[name]
-        check(launches[name] > 0, f"{name} was not launched on a path")
-        rows.append({"name": name, "route": "cuda",
-                     "source": csrc + where[name][0],
-                     "replaces": ref + str(where[name][1]),
-                     "launches": launches[name], "n": r["n"],
-                     "B": r.get("B"), "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        check(launches.get(name, 0) > 0, f"{name} was not launched on a path")
+        rows.append({"name": name, "route": "cuda", "source": where[name][0],
+                     "replaces": where[name][1],
+                     "launches": launches[name],
+                     "shape": r.get("shape", [r.get("B"), r.get("n")]),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "check": "ok"})
     emit({"kernels": rows})
     print(smi, flush=True)

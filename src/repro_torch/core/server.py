@@ -6,9 +6,9 @@ device its initial params lie on.
 
 This slice has the AsyncFedED server with both backends and both GMIS modes,
 compressed (int8 and bf16) deltas, and the flat backend's batched burst
-drain. The baseline servers (FedAsync, FedBuff, synchronous FedAvg/FedProx),
-the per-leaf variant, model sharding and a burst of int8 deltas on the flat
-backend are later slices: :func:`make_server` and the server raise
+drain for every wire form. The baseline servers (FedAsync, FedBuff,
+synchronous FedAvg/FedProx), the per-leaf variant and model sharding are
+later slices: :func:`make_server` and the server raise
 ``NotImplementedError`` for them.
 """
 from __future__ import annotations
@@ -350,8 +350,8 @@ class AsyncFedEDServer(AsyncServer):
         burst reuses the batched norms (``screen.decide_batch``). A burst of
         one, the tree backend, displacement GMIS, a burst mixing wire forms
         and a direction screen drain one at a time and re-register every
-        drained client at the final model. A burst of int8 deltas raises:
-        its kernels are not ported yet (ROADMAP.md B7)."""
+        drained client at the final model. A burst of int8 deltas goes
+        through the int8 twins of the batched sweeps."""
         modes = {u.delta.mode if compression.is_compressed(u.delta)
                  else "off" for u in upds}
         if (self.backend != "pallas" or self.gmis_mode != "ring"

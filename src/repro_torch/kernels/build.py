@@ -9,7 +9,8 @@ once, so a process that needs several libraries waits for the slowest
 build only.
 
 Nothing here runs at import time: the CPU tests import every module of the
-package on a machine with no ``nvcc``.
+package on a machine with no ``nvcc``. The checks and the stream lookup that
+every kernel wrapper makes before a launch are here too.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,3 +110,32 @@ def build_log(source: Path) -> str:
     """What ``nvcc`` printed when it built ``source`` (registers, spills)."""
     log = target(Path(source)).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def check_tensor(name: str, t: torch.Tensor, dtypes, shape,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of one of ``dtypes``, of
+    ``shape``, on ``device`` and, on CUDA, 16-byte aligned."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def stream(device: torch.device) -> int:
+    """The current stream of ``device``, which must be the current device:
+    a kernel launches on the device current to the calling thread."""
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {device} but the current CUDA device "
+                         f"is {torch.cuda.current_device()}: call under "
+                         f"torch.cuda.device({device})")
+    return torch.cuda.current_stream(device).cuda_stream

@@ -3,9 +3,12 @@
 //
 // Replaces the JAX package's Pallas kernels kernels/fedagg/fedagg.py::
 // fedagg_norms_batched (_norms_batched_kernel) and ::fedagg_apply_batched
-// (_apply_batched_kernel). Both are templates on the delta loader of
-// fedagg_common.cuh: f32 and bf16 deltas are instantiated here; the int8 wire
-// form is one more instantiation.
+// (_apply_batched_kernel), and their int8 twins ::fedagg_norms_batched_q
+// (_norms_batched_q_kernel) and ::fedagg_apply_batched_q
+// (_apply_batched_q_kernel). Both are templates on the delta loader of
+// fedagg_common.cuh, instantiated for f32, bf16 and int8 (per-1024 scaled)
+// deltas. An int8 delta reads 1 byte per element where an f32 one reads 4,
+// so its byte counts below drop from 4B to B (plus a scale per 1024).
 //
 // norms_batched: for x_t (n,), stales xs (B, n) and deltas D (B, n) it emits,
 // with s_b = x_t - xs_b,
@@ -231,6 +234,10 @@ int fedagg_batched_init(void) {
     err = cudaFuncSetAttribute(norms_batched_partial<BF16Delta>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)most);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(norms_batched_partial<I8Delta>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)most);
   return (int)err;
 }
 
@@ -262,6 +269,16 @@ int fedagg_norms_batched_bf16(const void* xt, const void* xs, const void* d,
                               (cudaStream_t)stream);
 }
 
+// The int8 wire form: q (B, n) int8 and s (B, n / 1024) f32 scales.
+int fedagg_norms_batched_int8(const void* xt, const void* xs, const void* q,
+                              const void* s, int b, int64_t n, void* partial,
+                              void* out, void* stream) {
+  return launch_norms_batched((const float*)xt, (const float*)xs,
+                              I8Delta{(const int8_t*)q, (const float*)s}, b,
+                              n, (float*)partial, (float*)out,
+                              (cudaStream_t)stream);
+}
+
 int fedagg_apply_batched_f32(const void* xt, const void* d, const void* etas,
                              int b, int64_t n, void* out, void* stream) {
   return launch_apply_batched((const float*)xt, F32Delta{(const float*)d},
@@ -272,6 +289,15 @@ int fedagg_apply_batched_f32(const void* xt, const void* d, const void* etas,
 int fedagg_apply_batched_bf16(const void* xt, const void* d, const void* etas,
                               int b, int64_t n, void* out, void* stream) {
   return launch_apply_batched((const float*)xt, BF16Delta{(const uint16_t*)d},
+                              (const float*)etas, b, n, (float*)out,
+                              (cudaStream_t)stream);
+}
+
+int fedagg_apply_batched_int8(const void* xt, const void* q, const void* s,
+                              const void* etas, int b, int64_t n, void* out,
+                              void* stream) {
+  return launch_apply_batched((const float*)xt,
+                              I8Delta{(const int8_t*)q, (const float*)s},
                               (const float*)etas, b, n, (float*)out,
                               (cudaStream_t)stream);
 }

@@ -11,6 +11,9 @@
                 Gram entry the sequential-equivalence schedule needs;
                 fedagg_apply_batched : one pass computing
                 x_t + sum_b eta_b * delta_b.
+  int8 burst    fedagg_norms_batched_q / fedagg_apply_batched_q : the burst
+                pair with the B deltas in int8 wire form, (B, n) int8 and
+                (B, n // QBLOCK) f32 scales, dequantized in registers.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fedagg.cu`` and ``csrc/fedagg_batched.cu``, built by ``nvcc`` for
@@ -20,9 +23,8 @@ the other. Each wrapper adds one to ``<wrapper>.launches`` per call that
 launches its kernel. The norms wrappers are one kernel in two CUDA launches
 (per-block partials, then the fixed-order fold), counted once per call.
 
-The batched pair takes f32 and bf16 deltas. Their int8 twins
-(``fedagg_norms_batched_q`` / ``fedagg_apply_batched_q``) are not ported: an
-int8 burst raises in ``ops.flat_aggregate_batched_q``.
+The batched pair takes f32 and bf16 deltas; its int8 twins are the same
+kernel templates with the int8 loader.
 
 ``BLOCK = BLOCK_ROWS * LANES = 65536`` and ``QBLOCK = 1024`` are layout
 constants of the flat state, not tile sizes of these kernels: the padded
@@ -122,6 +124,30 @@ def apply_batched_plain(x_t: torch.Tensor, deltas: torch.Tensor,
     return (x_t.float() + acc).to(x_t.dtype)
 
 
+def dequantize_rows_plain(qs: torch.Tensor,
+                          scales: torch.Tensor) -> torch.Tensor:
+    """(B, n) int8 ``qs`` with (B, n // QBLOCK) ``scales``: the (B, n) f32
+    deltas, each row as :func:`dequantize_plain` makes it."""
+    b = qs.shape[0]
+    return (qs.float().reshape(b, -1, QBLOCK)
+            * scales.reshape(b, -1, 1)).reshape(b, -1)
+
+
+def norms_batched_q_plain(x_t: torch.Tensor, x_stales: torch.Tensor,
+                          qs: torch.Tensor, scales: torch.Tensor):
+    """:func:`norms_batched_plain` of the dequantized deltas."""
+    return norms_batched_plain(x_t, x_stales,
+                               dequantize_rows_plain(qs, scales))
+
+
+def apply_batched_q_plain(x_t: torch.Tensor, qs: torch.Tensor,
+                          scales: torch.Tensor,
+                          etas: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_batched_plain` of the dequantized deltas: the same
+    roundings as the kernel, so the two agree to the bit."""
+    return apply_batched_plain(x_t, dequantize_rows_plain(qs, scales), etas)
+
+
 def split_batched(packed, b: int):
     """The batched norms' packed (2B + 2B^2,) output, as the four outputs
     (dist0_sq, dn_sq, cross, gram) of :func:`norms_batched_plain`. Works on a
@@ -133,23 +159,6 @@ def split_batched(packed, b: int):
 
 # ------------------------------------------------------------------ checks --
 
-def _check_tensor(name: str, t: torch.Tensor, dtypes, shape,
-                  device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device.type == "cuda" and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def _check_inputs(x_t: torch.Tensor, pairs) -> None:
     """x_t is a flat f32 (n,) with n a multiple of ``BLOCK``; each
     ``(name, tensor, dtypes[, shape])`` lies beside it, shape (n,) unless
@@ -159,9 +168,9 @@ def _check_inputs(x_t: torch.Tensor, pairs) -> None:
     n = x_t.shape[0]
     if n % BLOCK:
         raise ValueError(f"flat length {n} is not a multiple of {BLOCK}")
-    _check_tensor("x_t", x_t, (torch.float32,), (n,), x_t.device)
+    build.check_tensor("x_t", x_t, (torch.float32,), (n,), x_t.device)
     for name, t, dtypes, *shape in pairs:
-        _check_tensor(name, t, dtypes, shape[0] if shape else (n,),
+        build.check_tensor(name, t, dtypes, shape[0] if shape else (n,),
                       x_t.device)
 
 
@@ -210,6 +219,10 @@ def load_libraries() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
           [_VP, _VP, _VP, _INT, _I64, _VP, _VP, _VP])
     _bind(blib, ("fedagg_apply_batched_f32", "fedagg_apply_batched_bf16"),
           [_VP, _VP, _VP, _INT, _I64, _VP, _VP])
+    _bind(blib, ("fedagg_norms_batched_int8",),
+          [_VP, _VP, _VP, _VP, _INT, _I64, _VP, _VP, _VP])
+    _bind(blib, ("fedagg_apply_batched_int8",),
+          [_VP, _VP, _VP, _VP, _INT, _I64, _VP, _VP])
     _bind(blib, ("fedagg_norms_batched_scratch",), [_I64, _INT], _I64)
     _bind(blib, ("fedagg_batched_max_b", "fedagg_batched_init"), [])
     if blib.fedagg_batched_max_b() != MAX_BATCH:
@@ -219,16 +232,6 @@ def load_libraries() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
         raise RuntimeError("fedagg_batched_init failed: "
                            f"{lib.fedagg_error_string(err).decode()}")
     return lib, blib
-
-
-def _stream(device: torch.device) -> int:
-    """The current stream of ``device``, which must be the current device:
-    a kernel launches on the device current to the calling thread."""
-    if device.index != torch.cuda.current_device():
-        raise ValueError(f"tensors on {device} but the current CUDA device "
-                         f"is {torch.cuda.current_device()}: call under "
-                         f"torch.cuda.device({device})")
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -271,7 +274,7 @@ def fedagg_norms(x_t: torch.Tensor, x_stale: torch.Tensor,
           else lib.fedagg_norms_bf16)
     err = fn(x_t.data_ptr(), x_stale.data_ptr(), delta.data_ptr(),
              buf.data_ptr() + 8, buf.data_ptr(), x_t.shape[0],
-             _stream(x_t.device))
+             build.stream(x_t.device))
     _raise_on(err, "fedagg_norms")
     fedagg_norms.launches += 1
     return buf[:2]
@@ -301,7 +304,7 @@ def fedagg_axpy(x_t: torch.Tensor, delta: torch.Tensor,
     fn = (lib.fedagg_axpy_f32 if delta.dtype == torch.float32
           else lib.fedagg_axpy_bf16)
     err = fn(x_t.data_ptr(), delta.data_ptr(), eta.data_ptr(), out.data_ptr(),
-             x_t.shape[0], _stream(x_t.device))
+             x_t.shape[0], build.stream(x_t.device))
     _raise_on(err, "fedagg_axpy")
     fedagg_axpy.launches += 1
     return out
@@ -332,7 +335,7 @@ def fedagg_norms_q(x_t: torch.Tensor, x_stale: torch.Tensor, q: torch.Tensor,
     err = lib.fedagg_norms_int8(x_t.data_ptr(), x_stale.data_ptr(),
                                 q.data_ptr(), scales.data_ptr(),
                                 buf.data_ptr() + 8, buf.data_ptr(), n,
-                                _stream(x_t.device))
+                                build.stream(x_t.device))
     _raise_on(err, "fedagg_norms_q")
     fedagg_norms_q.launches += 1
     return buf[:2]
@@ -360,37 +363,53 @@ def fedagg_axpy_q(x_t: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     out = torch.empty_like(x_t)
     err = lib.fedagg_axpy_int8(x_t.data_ptr(), q.data_ptr(),
                                scales.data_ptr(), eta.data_ptr(),
-                               out.data_ptr(), n, _stream(x_t.device))
+                               out.data_ptr(), n, build.stream(x_t.device))
     _raise_on(err, "fedagg_axpy_q")
     fedagg_axpy_q.launches += 1
     return out
 
 
 def norms_batched_packed(x_t: torch.Tensor, x_stales: torch.Tensor,
-                         deltas: torch.Tensor) -> torch.Tensor:
-    """The launch behind :func:`fedagg_norms_batched`: its four outputs
-    packed in one (2B + 2B^2,) f32 tensor, [dist0_sq, dn_sq, cross, gram]
+                         deltas: torch.Tensor,
+                         scales: torch.Tensor = None) -> torch.Tensor:
+    """The launch behind :func:`fedagg_norms_batched` and, for int8
+    ``deltas`` with their (B, n // QBLOCK) ``scales``,
+    :func:`fedagg_norms_batched_q`: the four outputs packed in one
+    (2B + 2B^2,) f32 tensor, [dist0_sq, dn_sq, cross, gram]
     (:func:`split_batched` unpacks it), so a caller copies them to the host
-    in one transfer. Counts as a launch of ``fedagg_norms_batched``."""
+    in one transfer. Counts as a launch of the wrapper of its delta form."""
     b = deltas.shape[0] if isinstance(deltas, torch.Tensor) else 0
     _check_batch(b)
     n = x_t.shape[0] if isinstance(x_t, torch.Tensor) and x_t.dim() else 0
-    _check_inputs(x_t, [("x_stales", x_stales, _F32, (b, n)),
-                        ("deltas", deltas, _DELTA_DTYPES, (b, n))])
+    quant = scales is not None
+    _check_inputs(x_t, [("x_stales", x_stales, _F32, (b, n))]
+                  + ([("deltas", deltas, (torch.int8,), (b, n)),
+                      ("scales", scales, _F32, (b, n // QBLOCK))] if quant
+                     else [("deltas", deltas, _DELTA_DTYPES, (b, n))]))
     if x_t.device.type == "cpu":
-        dist, dn, cross, gram = norms_batched_plain(x_t, x_stales, deltas)
+        dist, dn, cross, gram = (
+            norms_batched_q_plain(x_t, x_stales, deltas, scales) if quant
+            else norms_batched_plain(x_t, x_stales, deltas))
         return torch.cat([dist, dn, cross.reshape(-1), gram.reshape(-1)])
     blib = load_libraries()[1]
     out_len = 2 * b + 2 * b * b
     buf = torch.empty(out_len + blib.fedagg_norms_batched_scratch(n, b),
                       dtype=torch.float32, device=x_t.device)
-    fn = (blib.fedagg_norms_batched_f32 if deltas.dtype == torch.float32
-          else blib.fedagg_norms_batched_bf16)
-    err = fn(x_t.data_ptr(), x_stales.data_ptr(), deltas.data_ptr(), b, n,
-             buf.data_ptr() + 4 * out_len, buf.data_ptr(),
-             _stream(x_t.device))
-    _raise_on(err, "fedagg_norms_batched")
-    fedagg_norms_batched.launches += 1
+    tail = (b, n, buf.data_ptr() + 4 * out_len, buf.data_ptr(),
+            build.stream(x_t.device))
+    if quant:
+        err = blib.fedagg_norms_batched_int8(
+            x_t.data_ptr(), x_stales.data_ptr(), deltas.data_ptr(),
+            scales.data_ptr(), *tail)
+        _raise_on(err, "fedagg_norms_batched_q")
+        fedagg_norms_batched_q.launches += 1
+    else:
+        fn = (blib.fedagg_norms_batched_f32 if deltas.dtype == torch.float32
+              else blib.fedagg_norms_batched_bf16)
+        err = fn(x_t.data_ptr(), x_stales.data_ptr(), deltas.data_ptr(),
+                 *tail)
+        _raise_on(err, "fedagg_norms_batched")
+        fedagg_norms_batched.launches += 1
     return buf[:out_len]
 
 
@@ -443,14 +462,69 @@ def fedagg_apply_batched(x_t: torch.Tensor, deltas: torch.Tensor,
     fn = (blib.fedagg_apply_batched_f32 if deltas.dtype == torch.float32
           else blib.fedagg_apply_batched_bf16)
     err = fn(x_t.data_ptr(), deltas.data_ptr(), etas.data_ptr(), b, n,
-             out.data_ptr(), _stream(x_t.device))
+             out.data_ptr(), build.stream(x_t.device))
     _raise_on(err, "fedagg_apply_batched")
     fedagg_apply_batched.launches += 1
     return out
 
 
+def fedagg_norms_batched_q(x_t: torch.Tensor, x_stales: torch.Tensor,
+                           qs: torch.Tensor, scales: torch.Tensor):
+    """:func:`fedagg_norms_batched` with the B deltas in int8 wire form:
+    ``qs`` (B, n) int8 and ``scales`` (B, n // QBLOCK) f32. Every output is
+    of the DEQUANTIZED deltas, exactly what :func:`fedagg_apply_batched_q`
+    applies.
+
+    Replaces the JAX package's
+    ``kernels/fedagg/fedagg.py::fedagg_norms_batched_q``
+    (``_norms_batched_q_kernel``). Bound by device memory: 4(B+1) + B bytes
+    per element (x_t, the B stales, one byte of each q) against about 4B^2
+    flops. It is the :func:`fedagg_norms_batched` kernel with the int8
+    loader: each staged delta is dequantized in registers on its way into
+    shared memory, so the f32 deltas never exist in device memory, and the
+    fold is the same fixed-order one (bitwise repeatable).
+    """
+    return split_batched(norms_batched_packed(x_t, x_stales, qs, scales),
+                         qs.shape[0])
+
+
+def fedagg_apply_batched_q(x_t: torch.Tensor, qs: torch.Tensor,
+                           scales: torch.Tensor,
+                           etas: torch.Tensor) -> torch.Tensor:
+    """x_t + sum_b etas[b] * dequant(qs[b], scales[b]) into a NEW f32
+    tensor; ``qs`` (B, n) int8, ``scales`` (B, n // QBLOCK) f32, ``etas``
+    (B,) f32 on the device of x_t.
+
+    Replaces the JAX package's
+    ``kernels/fedagg/fedagg.py::fedagg_apply_batched_q``
+    (``_apply_batched_q_kernel``). Bound by device memory: B + 4 bytes per
+    element read and 4 written, for 3B + 1 flops. It is the
+    :func:`fedagg_apply_batched` kernel with the int8 loader; the
+    dequantizing multiply and every multiply and add of the fixed-order sum
+    round on their own, so it equals its plain version to the bit.
+    """
+    b = qs.shape[0] if isinstance(qs, torch.Tensor) else 0
+    _check_batch(b)
+    n = x_t.shape[0] if isinstance(x_t, torch.Tensor) and x_t.dim() else 0
+    _check_inputs(x_t, [("qs", qs, (torch.int8,), (b, n)),
+                        ("scales", scales, _F32, (b, n // QBLOCK))])
+    _check_eta(etas, (b,), x_t)
+    if x_t.device.type == "cpu":
+        return apply_batched_q_plain(x_t, qs, scales, etas)
+    blib = load_libraries()[1]
+    etas = etas.contiguous()
+    out = torch.empty_like(x_t)
+    err = blib.fedagg_apply_batched_int8(
+        x_t.data_ptr(), qs.data_ptr(), scales.data_ptr(), etas.data_ptr(), b,
+        n, out.data_ptr(), build.stream(x_t.device))
+    _raise_on(err, "fedagg_apply_batched_q")
+    fedagg_apply_batched_q.launches += 1
+    return out
+
+
 KERNELS = (fedagg_norms, fedagg_axpy, fedagg_norms_batched,
-           fedagg_apply_batched, fedagg_norms_q, fedagg_axpy_q)
+           fedagg_apply_batched, fedagg_norms_q, fedagg_axpy_q,
+           fedagg_norms_batched_q, fedagg_apply_batched_q)
 
 
 def reset_launches() -> None:

@@ -86,18 +86,27 @@ def flat_aggregate_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
     (0,1) clip, 0 reject) folded into the schedule. ``scales`` is None when
     ``screen`` is.
     """
-    b = deltas.shape[0]
-    packed = fedagg.norms_batched_packed(x_t, x_stales, deltas).cpu().numpy()
-    d0, dn_sq, cross, gram = fedagg.split_batched(packed, b)
+    etas, gammas, dists, dnorms, scales = _burst_schedule(
+        fedagg.norms_batched_packed(x_t, x_stales, deltas), deltas.shape[0],
+        lam, eps, cap, screen)
+    new = fedagg.fedagg_apply_batched(
+        x_t, deltas, torch.from_numpy(etas).to(x_t.device))
+    return new, etas, gammas, dists, dnorms, scales
+
+
+def _burst_schedule(packed: torch.Tensor, b: int, lam: float, eps: float,
+                    cap: float, screen):
+    """The host step of a burst drain: one copy of the batched norms'
+    packed outputs to the host, the optional screen on the raw delta norms,
+    and the f64 schedule. Returns (etas, gammas, dists, dnorms, scales)."""
+    d0, dn_sq, cross, gram = fedagg.split_batched(packed.cpu().numpy(), b)
     scales = None
     if screen is not None:
         dns = np.sqrt(np.maximum(np.asarray(dn_sq, np.float64), 0.0))
         scales = screen(dns.astype(np.float32))
     etas, gammas, dists, dnorms = sequential_batch_schedule(
         d0, dn_sq, cross, gram, lam=lam, eps=eps, cap=cap, scales=scales)
-    new = fedagg.fedagg_apply_batched(
-        x_t, deltas, torch.from_numpy(etas).to(x_t.device))
-    return new, etas, gammas, dists, dnorms, scales
+    return etas, gammas, dists, dnorms, scales
 
 
 def flat_aggregate_q(x_t: torch.Tensor, x_stale: torch.Tensor,
@@ -123,14 +132,21 @@ def flat_aggregate_displacement_q(x_t: torch.Tensor, disp: torch.Tensor,
     return new, gamma, eta, dist, dnorm
 
 
-def flat_aggregate_batched_q(x_t, x_stales, qs, qscales, *, lam: float,
-                             eps: float, cap: float = 0.0, screen=None):
-    """The int8 twin of :func:`flat_aggregate_batched`. Its kernels
-    (``fedagg_norms_batched_q``, ``fedagg_apply_batched_q``) are not ported
-    yet, so an int8 burst raises."""
-    raise NotImplementedError(
-        "an int8 burst needs fedagg_norms_batched_q and "
-        "fedagg_apply_batched_q, which are not ported yet (ROADMAP.md B7)")
+def flat_aggregate_batched_q(x_t: torch.Tensor, x_stales: torch.Tensor,
+                             qs: torch.Tensor, qscales: torch.Tensor, *,
+                             lam: float, eps: float, cap: float = 0.0,
+                             screen=None):
+    """The int8 twin of :func:`flat_aggregate_batched`: B int8 arrivals
+    (``qs`` (B, n), ``qscales`` (B, n // QBLOCK)) drained in the same five
+    steps, the deltas dequantized inside both sweeps. The screen sees the
+    kernel-emitted norms of the DEQUANTIZED deltas, and its clip scales
+    fold into the etas exactly. Same return signature as the f32 path."""
+    etas, gammas, dists, dnorms, scales = _burst_schedule(
+        fedagg.norms_batched_packed(x_t, x_stales, qs, qscales), qs.shape[0],
+        lam, eps, cap, screen)
+    new = fedagg.fedagg_apply_batched_q(
+        x_t, qs, qscales, torch.from_numpy(etas).to(x_t.device))
+    return new, etas, gammas, dists, dnorms, scales
 
 
 def asyncfeded_aggregate_pallas(x_t: PyTree, x_stale: PyTree, delta: PyTree,

@@ -1,0 +1,125 @@
+"""Decode attention over a ring-buffer KV cache: one query token per
+sequence against a cache of S slots, the slots at or past ``valid_len``
+masked, an optional tanh softcap, grouped-query heads.
+
+On a CUDA tensor :func:`swa_decode_attention` launches its hand-written
+kernel (``csrc/swa_attn.cu``, built by ``nvcc`` for ``sm_90a`` at first use)
+or raises; on a CPU tensor it runs :func:`swa_decode_plain`. Nothing falls
+back from one to the other. ``swa_decode_attention.launches`` goes up by one
+per call that launches the kernel (two CUDA launches: the pieces, then their
+merge).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = Path(__file__).with_name("csrc") / "swa_attn.cu"
+_DTYPES = (torch.float32, torch.bfloat16)
+_VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def swa_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_len: torch.Tensor,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """q (B, H, D); caches (B, S, KV, D) with H a multiple of KV; valid_len
+    (B,) -> (B, H, D) in q's dtype. The JAX package's
+    ``models/layers.py::decode_attention`` on kv heads repeated to H, in
+    f32: scores scaled by D^-0.5, softcapped, slots at or past valid_len set
+    to -1e30, a softmax over the S slots, then the weighted sum of V."""
+    b, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    k, v = k_cache.float(), v_cache.float()
+    if h != kv:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    sc = torch.einsum("bhd,bkhd->bhk", q.float(), k) * d ** -0.5
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    pos = torch.arange(s, device=q.device)
+    valid = pos[None, :] < valid_len.reshape(-1, 1).to(q.device)
+    sc = torch.where(valid[:, None, :], sc, torch.full_like(sc, -1e30))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhk,bkhd->bhd", p, v).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/swa_attn.cu``."""
+    lib = build.load(SOURCE)
+    for name in ("swa_decode_f32", "swa_decode_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _F,
+                       _F, _VP, _VP, _VP]
+        fn.restype = _INT
+    lib.swa_scratch_floats.argtypes = [_INT, _INT, _INT, _INT]
+    lib.swa_scratch_floats.restype = ctypes.c_int64
+    lib.swa_max_rep.restype = lib.swa_max_d.restype = _INT
+    lib.swa_error_string.argtypes = [_INT]
+    lib.swa_error_string.restype = ctypes.c_char_p
+    if (lib.swa_max_rep(), lib.swa_max_d()) != (MAX_REP, MAX_D):
+        raise RuntimeError("swa_attn.cu and MAX_REP / MAX_D disagree")
+    return lib
+
+
+#: what the kernel takes: at most 16 query heads per kv head, a head dim of
+#: at most 256 that is a multiple of 4 (``kMaxRep``, ``kMaxD`` in the source)
+MAX_REP, MAX_D = 16, 256
+
+
+def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, valid_len: torch.Tensor,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """q (B, H, D); k_cache, v_cache (B, S, KV, D) un-repeated; valid_len
+    (B,) int32. Returns (B, H, D) in q's dtype (f32 or bf16).
+
+    Replaces the JAX package's
+    ``kernels/swa_attn/swa_attn.py::swa_decode_attention``
+    (``_swa_decode_kernel``). Bound by device memory: it must read the
+    valid slots of K and V once, 2 * valid * KV * D elements per sequence,
+    for 4 flops per element and query head. The kernel cuts the cache into
+    64-slot pieces, one block per (piece, b, kv head); each block reads its
+    K and V rows once for all H / KV query heads that share them, and a
+    second launch merges the pieces' softmax partials in a fixed order (no
+    atomics). S need not be a multiple of anything: the last piece is short.
+    """
+    if not isinstance(q, torch.Tensor) or q.dim() != 3:
+        raise ValueError("q must be a (B, H, D) tensor")
+    b, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    build.check_tensor("q", q, _DTYPES, (b, h, d), dev)
+    build.check_tensor("k_cache", k_cache, (q.dtype,), (b, s, kv, d), dev)
+    build.check_tensor("v_cache", v_cache, (q.dtype,), (b, s, kv, d), dev)
+    build.check_tensor("valid_len", valid_len, (torch.int32,), (b,), dev)
+    if h % kv:
+        raise ValueError(f"{h} query heads do not share {kv} kv heads evenly")
+    if dev.type == "cpu":
+        return swa_decode_plain(q, k_cache, v_cache, valid_len, softcap)
+    if h // kv > MAX_REP or d > MAX_D or d % 4:
+        raise ValueError(f"the kernel takes H / KV <= {MAX_REP} and a head "
+                         f"dim <= {MAX_D} that is a multiple of 4; got "
+                         f"{h // kv} and {d}")
+    lib = load_library()
+    scratch = torch.empty(lib.swa_scratch_floats(b, h, s, d),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    fn = (lib.swa_decode_f32 if q.dtype == torch.float32
+          else lib.swa_decode_bf16)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             valid_len.data_ptr(), b, h, s, kv, d, d ** -0.5, float(softcap),
+             scratch.data_ptr(), out.data_ptr(), build.stream(dev))
+    if err:
+        raise RuntimeError("swa_decode_attention launch failed: "
+                           f"{lib.swa_error_string(err).decode()}")
+    swa_decode_attention.launches += 1
+    return out
+
+
+swa_decode_attention.launches = 0
+KERNELS = (swa_decode_attention,)

@@ -1,1 +1,2 @@
-"""The paper's task models."""
+"""The paper's task models (``small.py``) and the assigned architectures'
+model code (``params``, ``layers``, ``ssm``, ``rglru``, ``model``)."""

@@ -1,0 +1,146 @@
+"""The serving slice's CUDA kernels on the card, held against their plain
+PyTorch versions, and the port's models and serve loop on CUDA against the
+same on the CPU. Every test here needs a CUDA card and skips without one;
+the file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_arch_cuda.py
+
+Tolerances. rglru_scan: atol 1e-5 + rtol 1e-5 against the plain loop (the
+carry across chunks is summed in another order, and the card's expf may
+differ from the CPU's in the last bit). swa_decode_attention: atol 1e-5
+with f32 inputs (a softmax merged from 64-slot pieces), and 8e-3 with bf16
+(the output rounds to bf16 once: half an ulp of values below 2). Model
+logits on the card against the CPU: rtol/atol 1e-4, as the CPU tests hold
+the port to the reference.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.kernels.rglru import rglru
+from repro_torch.kernels.swa_attn import ops as swa_ops
+from repro_torch.kernels.swa_attn import swa_attn
+from repro_torch.launch import serve
+from repro_torch.models import model as M
+from repro_torch.utils import pytree as pt
+
+requires_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
+                                   reason="needs a CUDA card")
+
+
+def gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(4, 2064, 2560), (1, 100, 96),
+                                   (2, 64, 128), (2, 65, 128), (3, 1, 8)])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+def test_rglru_matches_plain(shape, with_h0):
+    """Many chunks, a short last chunk, exactly one chunk and one past it,
+    one step."""
+    b, s, w = shape
+    g = gen(s)
+    la = -torch.rand(b, s, w, device="cuda", generator=g) * 0.3
+    xi = torch.randn(b, s, w, device="cuda", generator=g)
+    h0 = (torch.randn(b, w, device="cuda", generator=g) if with_h0
+          else None)
+    rglru.rglru_scan.launches = 0
+    out, last = rglru.rglru_scan(la, xi, h0)
+    ref, rlast = rglru.rglru_scan_plain(la, xi, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(last, rlast, rtol=1e-5, atol=1e-5)
+    again, _ = rglru.rglru_scan(la, xi, h0)
+    assert torch.equal(out, again)
+    assert rglru.rglru_scan.launches == 2
+
+
+@requires_cuda
+def test_rglru_bf16():
+    g = gen(1)
+    la = -torch.rand(2, 300, 256, device="cuda", generator=g) * 0.3
+    xi = torch.randn(2, 300, 256, device="cuda",
+                     generator=g).bfloat16()
+    out, last = rglru.rglru_scan(la, xi)
+    ref, rlast = rglru.rglru_scan_plain(la, xi)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=8e-3,
+                               atol=1e-5)
+    torch.testing.assert_close(last, rlast, rtol=1e-5, atol=1e-5)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 10, 1, 256, 0.0),
+                                   (4, 48, 10, 1, 256, 0.0),
+                                   (2, 256, 8, 2, 64, 30.0),
+                                   (2, 100, 8, 8, 80, 0.0),
+                                   (1, 1, 16, 1, 4, 0.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_matches_plain(shape, dtype):
+    b, s, h, kv, d, cap = shape
+    g = gen(s)
+    q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
+    k = torch.randn(b, s, kv, d, device="cuda", generator=g).to(dtype)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=g).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    swa_attn.swa_decode_attention.launches = 0
+    lens = [torch.full((b,), s, dtype=torch.int32, device="cuda"),
+            torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
+            * max(1, s // (b + 1)),
+            torch.zeros(b, dtype=torch.int32, device="cuda")]
+    for vl in lens:
+        out = swa_attn.swa_decode_attention(q, k, v, vl, cap)
+        ref = swa_attn.swa_decode_plain(q, k, v, vl, cap)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(out, swa_attn.swa_decode_attention(q, k, v, vl,
+                                                              cap))
+    assert swa_attn.swa_decode_attention.launches == 2 * len(lens)
+
+
+@requires_cuda
+def test_swa_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 17, 8, device="cuda")
+    k = torch.zeros(1, 4, 1, 8, device="cuda")
+    vl = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="H / KV"):
+        swa_attn.swa_decode_attention(q, k, k, vl)
+    with pytest.raises(ValueError, match="on cpu"):
+        swa_ops.decode_attention(q[:, None], k.cpu(), k, 1)
+
+
+def _reduced(arch, **kw):
+    return dataclasses.replace(configs.reduced(configs.get_arch(arch)),
+                               dtype="float32", **kw)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "h2o-danube-1.8b"])
+def test_model_on_cuda_matches_cpu(arch):
+    """Prefill and eight decode steps on the card and on the CPU from the
+    same weights: every RG-LRU prefill launched the scan kernel and every
+    attention decode step the decode kernel."""
+    cfg = _reduced(arch, num_layers=5)
+    params = M.init_model(torch.Generator().manual_seed(0), cfg)
+    gparams = pt.tree_map(lambda t: t.cuda(), params)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 70),
+                           generator=torch.Generator().manual_seed(1))
+    rglru.rglru_scan.launches = swa_attn.swa_decode_attention.launches = 0
+    got = serve.generate(gparams, cfg, prompt.cuda(), 9, keep_logits=True)
+    kinds = cfg.layer_kinds
+    assert rglru.rglru_scan.launches == kinds.count("rglru")
+    assert swa_attn.swa_decode_attention.launches == 8 * kinds.count("attn")
+    want = serve.generate(params, cfg, prompt, 9, feed=got.tokens.cpu(),
+                          keep_logits=True)
+    for a, b in zip(got.logits, want.logits):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@requires_cuda
+def test_serve_defaults_to_cuda():
+    tokens = serve.serve("recurrentgemma-2b", verbose=False)
+    assert tokens.is_cuda and tokens.shape == (2, 16)

@@ -19,6 +19,7 @@ TASKS = ("synthetic-1-1", "femnist", "shakespeare")
 
 #: modules the port keeps as copies of the reference's
 COPIED = ("utils.registry", "configs.paper_tasks", "configs.scenarios",
+          "configs.recurrentgemma_2b", "configs.h2o_danube_1_8b",
           "data.synthetic", "data.femnist", "data.shakespeare",
           "data.pipeline", "core.events", "core.behavior", "core.screening",
           "core.adaptive_k")
@@ -67,6 +68,16 @@ class TestFedConfig:
     def test_paper_task_configs_equal(self, name):
         assert (dataclasses.asdict(TC.PAPER_TASKS[name])
                 == dataclasses.asdict(C.PAPER_TASKS[name]))
+
+    @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
+                                      "h2o-danube-1.8b"])
+    def test_arch_configs_equal(self, arch):
+        """The serving slice's architectures, full and reduced."""
+        assert (dataclasses.asdict(TC.get_arch(arch))
+                == dataclasses.asdict(C.get_arch(arch)))
+        assert (dataclasses.asdict(TC.reduced(TC.get_arch(arch)))
+                == dataclasses.asdict(C.reduced(C.get_arch(arch))))
+        assert set(TC.ARCHS.names()) <= set(C.ARCHS.names())
 
     def test_scenario_configs_equal(self):
         assert TC.SCENARIOS.names() == C.SCENARIOS.names()

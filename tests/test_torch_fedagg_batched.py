@@ -1,7 +1,7 @@
 """The burst drain's sweeps in the port (fedagg_norms_batched,
-fedagg_apply_batched, ops.flat_aggregate_batched) against the reference's
-Pallas kernels, run in interpret mode on the CPU as the reference's own
-tests run them, and against its ref.py oracles.
+fedagg_apply_batched, ops.flat_aggregate_batched, and their int8 twins)
+against the reference's Pallas kernels, run in interpret mode on the CPU as
+the reference's own tests run them, and against its ref.py oracles.
 
 On the CPU the wrappers take their plain PyTorch versions; the CUDA kernels
 are held against those plain versions on the card by
@@ -238,8 +238,91 @@ class TestWrapperChecks:
             fedagg.fedagg_apply_batched(x, d, etas)
 
     def test_int8_burst_raises_naming_b7(self):
-        with pytest.raises(NotImplementedError, match="B7"):
-            ops.flat_aggregate_batched_q(
-                torch.zeros(BLOCK), torch.zeros(2, BLOCK),
-                torch.zeros(2, BLOCK, dtype=torch.int8),
-                torch.zeros(2, BLOCK // fedagg.QBLOCK), lam=1.0, eps=1.0)
+        """The int8 burst drain (ROADMAP.md B7) runs: at B = 2, 15 and 24
+        (the int8 knee) ops.flat_aggregate_batched_q gives the reference's
+        drain (interpret mode) and its sequential oracle on the dequantized
+        deltas, and a bad int8 input is refused."""
+        for b in (2, 15, 24):
+            (jx, jxs, jq, js), (tx, txs, tq, ts) = q_inputs(b, 2 * BLOCK,
+                                                            seed=20 + b)
+            jr = jops.flat_aggregate_batched_q(jx, jxs, jq, js, lam=LAM,
+                                               eps=EPS)
+            tr = ops.flat_aggregate_batched_q(tx, txs, tq, ts, lam=LAM,
+                                              eps=EPS)
+            np.testing.assert_allclose(tr[0].numpy(), np.asarray(jr[0]),
+                                       rtol=1e-4, atol=1e-5)
+            for t, j in zip(tr[1:5], jr[1:5]):
+                assert t.dtype == np.float32
+                np.testing.assert_allclose(t, j, rtol=1e-4)
+            assert tr[5] is None and jr[5] is None
+            jd = np.asarray(dequant(jq, js))
+            rnew, retas, rgammas, rdists = jref.aggregate_batched_seq_ref(
+                jx, jxs, jnp.asarray(jd), LAM, EPS)
+            np.testing.assert_allclose(tr[1], retas, rtol=1e-4)
+            np.testing.assert_allclose(tr[2], rgammas, rtol=1e-4)
+            np.testing.assert_allclose(tr[3], rdists, rtol=1e-4)
+            np.testing.assert_allclose(tr[0].numpy(), np.asarray(rnew),
+                                       rtol=1e-4, atol=1e-5)
+        with pytest.raises((TypeError, ValueError)):
+            ops.flat_aggregate_batched_q(tx, txs, tq.float(), ts, lam=1.0,
+                                         eps=1.0)
+        with pytest.raises((TypeError, ValueError)):
+            fedagg.fedagg_apply_batched_q(tx, tq, ts[:, :-1],
+                                          torch.ones(24))
+
+
+def q_inputs(b, n, seed=0):
+    """x_t, B stales, and B int8 deltas with their per-1024 scales (one
+    all-zero block), the same numbers for both packages."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n).astype(np.float32)
+    xs = (x + 0.01 * rng.normal(size=(b, n))).astype(np.float32)
+    q = rng.integers(-127, 128, size=(b, n)).astype(np.int8)
+    q[:, :fedagg.QBLOCK] = 0
+    sc = (0.05 / 127 * rng.uniform(0.5, 2.0, size=(b, n // fedagg.QBLOCK))
+          ).astype(np.float32)
+    return ((jnp.asarray(x), jnp.asarray(xs), jnp.asarray(q),
+             jnp.asarray(sc)),
+            (torch.from_numpy(x), torch.from_numpy(xs), torch.from_numpy(q),
+             torch.from_numpy(sc)))
+
+
+def dequant(q, sc):
+    """The (B, n) f32 deltas the int8 wire form stands for."""
+    q = np.asarray(q).astype(np.float32)
+    return (q.reshape(q.shape[0], -1, fedagg.QBLOCK)
+            * np.asarray(sc)[..., None]).reshape(q.shape)
+
+
+@pytest.mark.parametrize("n", [BLOCK, 2 * BLOCK])
+@pytest.mark.parametrize("b", [2, 15, 24])
+class TestInt8AgainstPallas:
+    def test_norms_batched_q(self, b, n):
+        (jx, jxs, jq, js), (tx, txs, tq, ts) = q_inputs(b, n, seed=b)
+        got = [t.numpy() for t in fedagg.fedagg_norms_batched_q(tx, txs, tq,
+                                                                ts)]
+        assert [g.shape for g in got] == [(b,), (b,), (b, b), (b, b)]
+        truth = exact(jx, jxs, dequant(jq, js))
+        assert_norms_close(got, truth, 1e-5)
+        assert_norms_close(jfed.fedagg_norms_batched_q(jx, jxs, jq, js,
+                                                       interpret=True),
+                           truth, 1e-4)
+        # the plain version is the f32 one on the dequantized deltas
+        for a, w in zip(fedagg.fedagg_norms_batched_q(tx, txs, tq, ts),
+                        fedagg.norms_batched_plain(
+                            tx, txs, torch.from_numpy(dequant(jq, js)))):
+            assert torch.equal(a, w)
+
+    def test_apply_batched_q(self, b, n):
+        (jx, _, jq, js), (tx, _, tq, ts) = q_inputs(b, n, seed=b)
+        etas = np.linspace(0.1, 1.3, b).astype(np.float32)
+        got = fedagg.fedagg_apply_batched_q(tx, tq, ts, torch.from_numpy(etas))
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        want = jfed.fedagg_apply_batched_q(jx, jq, js, jnp.asarray(etas),
+                                           interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+        # the kernel's order of roundings: the f32 plain apply on the
+        # dequantized deltas, to the bit
+        assert torch.equal(got, fedagg.apply_batched_plain(
+            tx, torch.from_numpy(dequant(jq, js)), torch.from_numpy(etas)))

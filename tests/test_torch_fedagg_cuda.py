@@ -177,6 +177,31 @@ def test_batched_kernels_match_plain_versions(b, n, delta_dtype):
 
 
 @requires_cuda
+@pytest.mark.parametrize("b,n", [(2, BLOCK), (15, BLOCK), (24, 4 * BLOCK),
+                                 (128, BLOCK)])
+def test_batched_q_kernels_match_plain_versions(b, n):
+    """The int8 burst pair against its plain versions: norms to the batched
+    tolerances and bitwise repeatable, the apply to the bit."""
+    fedagg.reset_launches()
+    x, xs, d = batched_inputs(b, n, torch.float32, seed=b)
+    d[:, :fedagg.QBLOCK] = 0.0
+    wires = [compression.quantize_vec(row, "int8", n) for row in d]
+    qs = torch.stack([w.q for w in wires])
+    sc = torch.stack([w.scales for w in wires])
+    got = fedagg.fedagg_norms_batched_q(x, xs, qs, sc)
+    assert_batched_norms_close(got,
+                               fedagg.norms_batched_q_plain(x, xs, qs, sc))
+    again = fedagg.fedagg_norms_batched_q(x, xs, qs, sc)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    etas = torch.linspace(0.1, 0.9, b, device="cuda")
+    new = fedagg.fedagg_apply_batched_q(x, qs, sc, etas)
+    assert torch.equal(new, fedagg.apply_batched_q_plain(x, qs, sc, etas))
+    assert (fedagg.fedagg_norms_batched_q.launches,
+            fedagg.fedagg_apply_batched_q.launches,
+            fedagg.fedagg_norms_batched.launches) == (2, 1, 0)
+
+
+@requires_cuda
 def test_batched_rejects_a_burst_past_the_limit():
     x, xs, d = batched_inputs(fedagg.MAX_BATCH + 1, BLOCK, torch.float32)
     with pytest.raises(ValueError, match="arrivals"):
@@ -219,29 +244,23 @@ def _burst_run(dev, mode):
     srv.on_update(ClientUpdate(0, replies[0].iteration, 5, wire(deltas[0])))
     ups = [ClientUpdate(i, replies[i].iteration, 5, wire(deltas[i]))
            for i in (1, 2, 3)]
-    if mode == "int8":
-        for u in ups:
-            srv.on_update(u)
-    else:
-        srv.on_update_batch(ups)
+    srv.on_update_batch(ups)
     return srv, {k.__name__: k.launches for k in fedagg.KERNELS}
 
 
 @requires_cuda
 @pytest.mark.parametrize("mode", ["off", "bf16", "int8"])
 def test_server_paths_on_cuda_match_cpu(mode):
-    """One arrival and a burst of three (int8: four arrivals one at a time)
-    on the card and on the CPU: the card launches the kernels of the path,
-    and the runs agree."""
+    """One arrival and a burst of three on the card and on the CPU: the
+    card launches the kernels of the path, and the runs agree."""
     gpu, n = _burst_run("cuda", mode)
     cpu, c = _burst_run("cpu", mode)
     assert not any(c.values())
-    if mode == "int8":
-        assert (n["fedagg_norms_q"], n["fedagg_axpy_q"]) == (4, 4)
-    else:
-        assert (n["fedagg_norms"], n["fedagg_axpy"]) == (1, 1)
-        assert (n["fedagg_norms_batched"], n["fedagg_apply_batched"]) == (1,
-                                                                          1)
+    q = "_q" if mode == "int8" else ""
+    assert (n["fedagg_norms" + q], n["fedagg_axpy" + q]) == (1, 1)
+    assert (n["fedagg_norms_batched" + q],
+            n["fedagg_apply_batched" + q]) == (1, 1)
+    assert sum(n.values()) == 4
     assert ([(r.lag, r.k_next) for r in gpu.history]
             == [(r.lag, r.k_next) for r in cpu.history])
     np.testing.assert_allclose([r.gamma for r in gpu.history],

@@ -29,7 +29,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import compression as tc
 from repro_torch.core.server import (AsyncFedEDServer, ClientUpdate,
                                      make_server)
-from repro_torch.kernels.fedagg import fedagg, ops
+from repro_torch.kernels.fedagg import fedagg
 from repro_torch.utils import pytree as pt
 
 
@@ -150,22 +150,15 @@ class TestServerContract:
         assert torch.equal(s1._flat.vec, s2._flat.vec)
 
     def test_flat_burst_drain_not_ported(self):
-        """The flat burst drain is ported for f32 and bf16 deltas; a burst
-        of int8 deltas needs kernels of ROADMAP.md B7 and raises, leaving
-        the server as it was."""
-        srv = make_server("asyncfeded", self.params(),
-                          self.fed(delta_compression="int8"),
-                          backend="pallas")
-        for i in range(2):
-            srv.on_connect(i)
-        spec = pt.FlatSpec(self.params(), block=fedagg.BLOCK)
-        ups = [ClientUpdate(i, 1, 5, tc.quantize_vec(
-            spec.flatten(params_from_numpy(mk_delta(40 + i), device="cpu")),
-            "int8", spec.n)) for i in range(2)]
-        before = srv._flat.vec
-        with pytest.raises(NotImplementedError, match="B7"):
-            srv.on_update_batch(ups)
-        assert srv.t == 1 and srv._flat.vec is before and not srv.history
+        """The flat burst drain takes every wire form: bursts of int8
+        deltas on the flat server go through the int8 batched sweeps and
+        match the reference server's drains (no screen)."""
+        ref, port = both_servers(dict(lam=1.0, eps=1.0,
+                                      delta_compression="int8"))
+        drive(port, False, "int8")
+        drive(ref, True, "int8")
+        assert_same_run(port, ref, params_rtol=1e-4)
+        assert max(len(d) for d in SCRIPT) > 1
 
     def test_pytree_burst_drains_sequentially(self):
         srv = make_server("asyncfeded", self.params(), self.fed())
@@ -199,17 +192,22 @@ class TestServerContract:
             make_server("fedsgd", self.params(), self.fed())
 
     def test_compression_not_ported(self):
-        """Compressed transport is ported but for its batched int8 sweeps:
-        both backends take every mode, and the int8 burst op raises
-        naming ROADMAP.md B7."""
+        """Compressed transport is ported whole: both backends take every
+        mode, and an int8 burst screened inside the drain (norm clip) gives
+        the reference server's records, verdicts and model."""
         for mode in tc.MODES:
             for backend in ("pytree", "pallas"):
                 make_server("asyncfeded", self.params(),
                             self.fed(delta_compression=mode),
                             backend=backend)
-        with pytest.raises(NotImplementedError, match="B7"):
-            ops.flat_aggregate_batched_q(None, None, None, None, lam=1.0,
-                                         eps=1.0)
+        ref, port = both_servers(dict(lam=1.0, eps=1.0,
+                                      delta_compression="int8",
+                                      screen="clip", screen_warmup=2))
+        drive(port, False, "int8")
+        drive(ref, True, "int8")
+        assert_same_run(port, ref, params_rtol=1e-4)
+        assert port.screen.counts == ref.screen.counts
+        assert any(r.screen == "clip" for r in port.history)
 
     @pytest.mark.parametrize("policy", ["clip", "reject"])
     def test_norm_screen_matches_reference(self, policy):

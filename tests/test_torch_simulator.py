@@ -93,12 +93,11 @@ def test_default_device_needs_cuda():
                                          arrival_rate=1.0),
                                     dict(client_engine="cohort"),
                                     dict(attack="scale", attack_frac=0.1),
-                                    dict(delta_compression="int8",
-                                         backend="pallas", batch_window=1.0)])
+                                    dict(model_shards=2, backend="pallas")])
 def test_later_slices_raise(change):
-    """Each later slice raises naming its ROADMAP item: the first three
-    when the simulation is built, an int8 burst (B7) at its first drain of
-    more than one arrival."""
+    """Each later slice raises naming its ROADMAP item when the simulation
+    is built: the population engine, the cohort engine, the adversary and
+    the model-sharded flat state."""
     fed = dataclasses.replace(TC.SYNTHETIC_1_1.fed, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu").run(
@@ -167,3 +166,15 @@ def test_int8_transport_trace_identical():
                                      30)
     _assert_same_trace(jres, tres)
     assert set(sizes) == {1} and len(tres.history) == 30
+
+
+def test_synthetic_burst_int8_trace_identical():
+    """SYNTHETIC_BURST with int8 deltas (loop engine, flat server, auto
+    window): through its first burst, 29 arrivals drained by the int8
+    batched sweeps after 34 single ones, the trace equals the reference's."""
+    fed = dataclasses.replace(C.SYNTHETIC_BURST.fed, client_engine="loop",
+                              delta_compression="int8")
+    jres, tres, sizes = _parity_runs(C.SYNTHETIC_BURST, TC.SYNTHETIC_BURST,
+                                     fed, 63)
+    _assert_same_trace(jres, tres)
+    assert sizes == [1] * 34 + [29] and len(sizes) == tres.total_drains
