@@ -6,7 +6,7 @@ toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout (four
+It builds the port's CUDA kernels from the sources in the checkout (five
 files, one ``nvcc`` each, started together), holds each kernel against its
 plain PyTorch version on the card, times both, runs the port's AsyncFedED
 simulation (``backend="pallas"``, the flat-state server) on the paper's
@@ -15,8 +15,11 @@ int8 deltas) and with int8 deltas (synthetic-1-1, femnist), checks that
 every aggregation went through the kernels of its path and that the CUDA
 event traces equal the CPU runs', profiles two of the runs, serves
 recurrentgemma-2b at full width and depth (every RG-LRU prefill through the
-scan kernel, every attention decode step through the decode kernel), and
-holds the card's logits against the CPU port's at full width. The line of its
+scan kernel, every attention decode step through the decode kernel) and
+mamba2-1.3b at full width and depth (every SSD prefill through the SSD scan
+kernel), and holds the card's logits against the CPU port's at full width
+for both. ``fedagg_fused``, which no path of either package calls, is held
+to the bit against ``fedagg_axpy`` and ``fedagg_norms``. The line of its
 standard output before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them, the last line is ``{"ok": true, "device": {...}}``, and every other
@@ -29,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -110,14 +114,38 @@ SWA_SHAPES = [(4, 2048, 10, 1, 256, 0.0, (2048,) * 4),
 #: across chunks and the decode's merge of pieces sum in other orders
 RGLRU_ATOL = 1e-5
 SWA_ATOL = 1e-5
-#: the serve runs (batch, prompt, new tokens) at full width and depth: the
-#: first wraps the 2048-slot ring, the second leaves slots masked (S = 48)
-SERVE_RUNS = [(4, 2064, 16), (4, 32, 16)]
-#: CUDA against the CPU port: full width, 3 layers (one rglru, rglru, attn
-#: group), batch 1, prompt 64, 8 tokens; the CPU is fed the card's tokens.
-#: Logits agree to 1e-4 of the step's largest |logit| (f32 dense products
-#: of depth 2560-7680 summed in other orders by cuBLAS and the CPU)
-PARITY = dict(num_layers=3, batch=1, prompt=64, gen=8, rtol=1e-4)
+#: fedagg_fused's lengths: the synthetic-1-1 flat state and the flat states
+#: of a ~67M- and a ~270M-param model
+FUSED_SIZES = (65536, 1 << 26, 1 << 28)
+#: ssd_scan at (B, S, H, P, G, N, chunk, with a starting state): the
+#: mamba2-1.3b serve prefills (eight 256-step chunks, from zero and from a
+#: state; one ragged chunk of 32), a ragged chunk of 40 and G = 4 groups of
+#: two heads
+SSD_SHAPES = [(4, 2048, 64, 64, 1, 128, 256, False),
+              (4, 2048, 64, 64, 1, 128, 256, True),
+              (4, 32, 64, 64, 1, 128, 256, False),
+              (2, 40, 8, 64, 1, 128, 256, True),
+              (2, 512, 8, 64, 4, 128, 256, True)]
+#: its tolerance against the plain version and the model twin, relative to
+#: the largest |y| (and |state|): the products sum up to L * N = 32,768
+#: terms in other orders
+SSD_TOL = 1e-4
+#: the serve runs (batch, prompt, new tokens) at full width and depth:
+#: recurrentgemma-2b's first wraps the 2048-slot ring, its second leaves
+#: slots masked (S = 48); mamba2-1.3b's first scans eight 256-step chunks,
+#: its second one chunk cut to 32
+SERVES = {"recurrentgemma-2b": [(4, 2064, 16), (4, 32, 16)],
+          "mamba2-1.3b": [(4, 2048, 16), (4, 32, 16)]}
+#: CUDA against the CPU port: full width, 3 layers, batch 1, 8 tokens; the
+#: CPU is fed the card's tokens. recurrentgemma-2b: one (rglru, rglru, attn)
+#: group, prompt 64; mamba2-1.3b: prompt 512, two chunks, so the state
+#: crosses a chunk. Logits agree to 1e-4 of the step's largest |logit| (f32
+#: dense products of depth 2048-8192 summed in other orders by cuBLAS and
+#: the CPU)
+PARITY = {"recurrentgemma-2b": dict(num_layers=3, batch=1, prompt=64, gen=8,
+                                    rtol=1e-4),
+          "mamba2-1.3b": dict(num_layers=3, batch=1, prompt=512, gen=8,
+                              rtol=1e-4)}
 
 
 def emit(obj) -> None:
@@ -215,21 +243,36 @@ def phase_env(torch) -> str:
     return smi
 
 
-def phase_build(build, fedagg, rglru, swa_attn) -> None:
+def ptxas_lines(log: str) -> list:
+    """``nvcc -Xptxas -v``'s register, shared-memory and spill lines, one
+    string per kernel, led by the kernel's name (unmangled where the name
+    follows the anonymous namespace of its source)."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            if m:
+                name = name[m.end():m.end() + int(m.group(1))]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
+
+
+def phase_build(build, libs) -> None:
     """Every CUDA source of the port, one ``nvcc`` each, started together,
-    then loaded and bound."""
+    then loaded and bound. ``libs``: (sources, loader) per module."""
     t0 = time.time()
-    sources = (*fedagg.SOURCES, rglru.SOURCE, swa_attn.SOURCE)
+    sources = [src for srcs, _ in libs for src in srcs]
     build.build_all(sources)
-    fedagg.load_libraries()
-    rglru.load_library()
-    swa_attn.load_library()
-    ptxas = [l.strip() for src in sources
-             for l in build.build_log(src).splitlines()
-             if "registers" in l or "spill" in l]
+    for _, load in libs:
+        load()
     emit({"phase": "build", "seconds": time.time() - t0,
           "sources": [str(src.relative_to(ROOT)) for src in sources],
-          "ptxas": ptxas})
+          "ptxas": {src.name: ptxas_lines(build.build_log(src))
+                    for src in sources}})
 
 
 def phase_kernels(torch, fedagg) -> dict:
@@ -662,39 +705,202 @@ def phase_arch_kernels(torch, rglru, swa_attn) -> dict:
     return main
 
 
-def phase_serve(torch, rglru, swa_attn, launches: dict) -> None:
-    """recurrentgemma-2b served at full width and depth in f32 from seeded
-    random weights (``SERVE_RUNS``, after an unmeasured warm-up run): every
-    RG-LRU layer's prefill must launch the scan kernel once and every
-    attention layer's decode step the decode kernel once, the logits must
-    be finite and the tokens in the vocabulary. Then a short run once more
-    under torch.profiler: the device's busy time and idle share."""
+def phase_fused(torch, fedagg) -> dict:
+    """fedagg_fused at ``FUSED_SIZES``: its output must equal fedagg_axpy's
+    and its norms fedagg_norms', to the bit, on the same inputs; against
+    its plain version, timed. Work: x_t, x_stale and delta read and the
+    output written, 16 bytes and 7 flops per element. No single PyTorch
+    call computes both outputs. Returns the row at the synthetic-1-1
+    length."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(5)
+    eta = torch.full((), 0.37, device=dev)
+    rows = {}
+    for n in FUSED_SIZES:
+        def make():
+            x = torch.randn(n, device=dev, generator=g)
+            return (x, x + 0.01 * torch.randn(n, device=dev, generator=g),
+                    0.05 * torch.randn(n, device=dev, generator=g))
+        x, xs, d = make()
+        out, part = fedagg.fedagg_fused(x, xs, d, eta)
+        same_axpy = torch.equal(out, fedagg.fedagg_axpy(x, d, eta))
+        same_norms = torch.equal(part, fedagg.fedagg_norms(x, xs, d))
+        check(same_axpy and same_norms,
+              f"fedagg_fused n={n}: output equal to fedagg_axpy's "
+              f"{same_axpy}, norms equal to fedagg_norms' {same_norms}")
+        pout, ppart = fedagg.fused_plain(x, xs, d, eta)
+        err = float((out - pout).abs().max())
+        rel = float(((part - ppart).abs() / ppart.abs()).max())
+        check(err == 0.0 and rel <= NORMS_RTOL.get(n, 1e-4),
+              f"fedagg_fused n={n}: output err {err}, norms rel {rel}")
+        again = fedagg.fedagg_fused(x, xs, d, eta)
+        repeat = torch.equal(out, again[0]) and torch.equal(part, again[1])
+        check(repeat, f"fedagg_fused n={n} not bitwise reproducible")
+        big = 16 * n > ROTATE_BYTES // 2
+        reps = 5 if big else 20
+        k = timings(lambda: fedagg.fedagg_fused(x, xs, d, eta), reps)
+        plain = timings(lambda: fedagg.fused_plain(x, xs, d, eta), reps)
+        rot = k["device"] if big else rotated_ms(
+            lambda a, b, c: fedagg.fedagg_fused(a, b, c, eta), make, 16 * n)
+        bms, by = bound_ms(16 * n, 7 * n)
+        row = {"phase": "kernel", "name": "fedagg_fused", "n": n,
+               "equal_to_axpy": same_axpy, "equal_to_norms": same_norms,
+               "max_abs_err": err, "norms_max_rel_err": rel,
+               "bitwise_repeat": repeat, "ms": k["device"],
+               "ms_rotated": rot, "plain_ms": plain["device"],
+               "bound_ms": bms, "bound_by": by,
+               "gb_per_s_rotated": 16 * n / rot / 1e6, "library_ms": None,
+               "call_ms": k["call"], "plain_call_ms": plain["call"],
+               "path_launches": "none: no path of either package calls it"}
+        emit(row)
+        rows[n] = row
+        del x, xs, d, out, part, pout, again
+        torch.cuda.empty_cache()
+    return rows[FUSED_SIZES[0]]
+
+
+def ssd_work(bs, s, h, p, g, n, chunk, with_h0):
+    """(bytes, flops) the SSD scan must move and do: x, dt, b, c, a (and
+    h0) read once, y and the final state written; per row and chunk of L,
+    C B^T and the weighted W X over the L (L + 1) / 2 causal pairs
+    (2 (N + P) flops each), the chunk's state and the state's term
+    (2 L P N each)."""
+    L = min(chunk, s)
+    nbytes = 4 * (2 * bs * s * h * p + bs * s * h + 2 * bs * s * g * n + h
+                  + bs * h * p * n * (2 if with_h0 else 1))
+    flops = bs * h * (s // L) * (4 * L * p * n + L * (L + 1) * (n + p))
+    return nbytes, flops
+
+
+def ssd_row(torch, ssd_ops, SSM, bs, s, h, p, g, n, chunk, with_h0,
+            seed=6) -> dict:
+    """ssd_scan on the model's layout at (B, S, H, P, G, N, chunk), held
+    against its plain version and against the model twin
+    ``models/ssm.py::ssd_chunked``, errors scaled by the largest |y| (or
+    |state|); bitwise repeatable; timed. ``ms`` is the time on inputs
+    cycled through more than the L2 (each layer finds its inputs cold),
+    ``ms_l2`` on resident ones."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make():
+        rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+        return (rnd(bs, s, h, p), F.softplus(rnd(bs, s, h)),
+                -torch.exp(0.3 * rnd(h)), 0.3 * rnd(bs, s, g, n),
+                0.3 * rnd(bs, s, g, n),
+                rnd(bs, h, p, n) if with_h0 else None)
+    x, dt, a, b, c, h0 = make()
+    L = min(chunk, s)
+    y, st = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, h0)
+    ry, rst = ssd_ops.ssd_chunked_plain(x, dt, a, b, c, chunk, h0)
+    my, mst = SSM.ssd_chunked(x, dt, a, b, c, L, initial_state=h0)
+    scaled = lambda u, v: float((u - v).abs().max() / v.abs().max())
+    errs = {"y_scaled_err": scaled(y, ry), "state_scaled_err": scaled(st, rst),
+            "y_scaled_err_model": scaled(y, my),
+            "state_scaled_err_model": scaled(st, mst)}
+    tag = {"shape": [bs, s, h, p, g, n, L], "h0": with_h0}
+    check(max(errs.values()) <= SSD_TOL, f"ssd_scan {tag}: errors {errs}")
+    y2, st2 = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, h0)
+    repeat = torch.equal(y, y2) and torch.equal(st, st2)
+    check(repeat, f"ssd_scan {tag} not bitwise reproducible")
+    err = float((y - ry).abs().max())
+    del y2, st2, my, mst
+    nbytes, flops = ssd_work(bs, s, h, p, g, n, chunk, with_h0)
+    big = nbytes > ROTATE_BYTES // 2
+    fn = lambda *args: ssd_ops.ssd_chunked(*args[:5], chunk, args[5])
+    k = timings(lambda: fn(x, dt, a, b, c, h0), 5 if big else 20)
+    plain = device_ms(lambda: ssd_ops.ssd_chunked_plain(x, dt, a, b, c,
+                                                        chunk, h0),
+                      reps=1, trials=3)
+    rot = k["device"] if big else rotated_ms(fn, make, nbytes)
+    bms, by = bound_ms(nbytes, flops)
+    row = {"phase": "kernel", "name": "ssd_scan", **tag,
+           "max_abs_err": err, "max_abs_y": float(ry.abs().max()), **errs,
+           "tol": SSD_TOL, "bitwise_repeat": repeat, "ms": rot,
+           "ms_l2": k["device"], "plain_ms": plain, "bound_ms": bms,
+           "bound_by": by, "gflop": flops / 1e9,
+           "tflop_per_s": flops / rot / 1e9, "library_ms": None,
+           "call_ms": k["call"]}
+    del x, dt, a, b, c, h0, y, st, ry, rst
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ssd_kernels(torch, ssd_ops, SSM) -> dict:
+    """ssd_scan at every shape of ``SSD_SHAPES``, then the first shape's
+    three passes under torch.profiler (device ms each, over 5 calls);
+    returns the row at the first (the serve prefill of 2048)."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = [ssd_row(torch, ssd_ops, SSM, *shape) for shape in SSD_SHAPES]
+    for row in rows:
+        emit(row)
+    bs, s, h, p, g, n, chunk, _ = SSD_SHAPES[0]
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    args = [torch.randn(*shape, device=dev, generator=gen)
+            for shape in ((bs, s, h, p), (bs, s, h), (h,), (bs, s, g, n),
+                          (bs, s, g, n))]
+    args[1], args[2] = args[1].abs(), -args[2].abs()
+    ssd_ops.ssd_chunked(*args, chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ssd_ops.ssd_chunked(*args, chunk)
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.key_averages():
+        for name in ("chunk_pass", "fold_pass", "output_pass"):
+            if name in e.key:
+                passes[name] = getattr(e, "device_time_total",
+                                       getattr(e, "cuda_time_total", 0.0)
+                                       ) / 5e3
+    emit({"phase": "kernel_passes", "name": "ssd_scan",
+          "shape": [bs, s, h, p, g, n, chunk], "device_ms": passes})
+    del args
+    torch.cuda.empty_cache()
+    return rows[0]
+
+
+def expected_launches(kinds, gen_len: int) -> dict:
+    """What one serve run must launch: the scan kernel once per RG-LRU and
+    per SSD layer in the prefill, the decode kernel once per attention
+    layer in each of the ``gen_len - 1`` decode steps."""
+    return {"rglru_scan": kinds.count("rglru"),
+            "swa_decode_attention": kinds.count("attn") * (gen_len - 1),
+            "ssd_scan": kinds.count("ssd")}
+
+
+def phase_serve(torch, arch: str, kernels: dict, launches: dict) -> None:
+    """``arch`` served at full width and depth in f32 from seeded random
+    weights (``SERVES[arch]``, after an unmeasured warm-up run): the
+    serving kernels (``kernels``, by name) must launch as
+    :func:`expected_launches` says, the logits must be finite and the
+    tokens in the vocabulary. Then a short run once more under
+    torch.profiler: the device's busy time and idle share."""
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     dev = torch.device("cuda:0")
-    cfg = serve.serve_config("recurrentgemma-2b", reduced=False)
+    cfg = serve.serve_config(arch, reduced=False)
     t0 = time.perf_counter()
     params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     kinds = cfg.layer_kinds
     serve.generate(params, cfg, serve.make_prompt(cfg, 1, 32, 1, dev), 2)
-    for batch, prompt_len, gen_len in SERVE_RUNS:
+    for batch, prompt_len, gen_len in SERVES[arch]:
         prompt = serve.make_prompt(cfg, batch, prompt_len, 0, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rglru.rglru_scan.launches = 0
-        swa_attn.swa_decode_attention.launches = 0
+        resident = torch.cuda.memory_allocated()
+        for k in kernels.values():
+            k.launches = 0
         gen = serve.generate(params, cfg, prompt, gen_len, keep_logits=True)
-        counts = {"rglru_scan": rglru.rglru_scan.launches,
-                  "swa_decode_attention":
-                      swa_attn.swa_decode_attention.launches}
+        counts = {name: k.launches for name, k in kernels.items()}
         peak = torch.cuda.max_memory_allocated()
-        label = f"serve-recurrentgemma-2b-{prompt_len}"
-        check(counts == {"rglru_scan": kinds.count("rglru"),
-                         "swa_decode_attention":
-                             kinds.count("attn") * (gen_len - 1)},
+        label = f"serve-{arch}-{prompt_len}"
+        check(counts == expected_launches(kinds, gen_len),
               f"{label}: launches {counts}")
         check(all(bool(torch.isfinite(l).all()) for l in gen.logits),
               f"{label}: non-finite logits")
@@ -706,12 +912,14 @@ def phase_serve(torch, rglru, swa_attn, launches: dict) -> None:
               "params": cfg.param_count(), "layers": cfg.num_layers,
               "dtype": cfg.dtype, "batch": batch, "prompt": prompt_len,
               "new_tokens": gen_len,
-              "ring_slots": min(cfg.sliding_window, prompt_len + gen_len),
+              "ring_slots": (min(cfg.sliding_window, prompt_len + gen_len)
+                             if cfg.sliding_window else None),
               "init_s": init_s, "prefill_s": gen.prefill_s,
               "decode_s": gen.decode_s,
               "decode_ms_per_step": 1e3 * gen.decode_s / (gen_len - 1),
               "decode_tok_per_s": batch * (gen_len - 1) / gen.decode_s,
-              "peak_gib": peak / 2 ** 30, "launches": counts,
+              "peak_gib": peak / 2 ** 30,
+              "resident_before_gib": resident / 2 ** 30, "launches": counts,
               "tokens_row0": gen.tokens[0].tolist()})
         _add(launches, counts)
     # the short run's prefill and three decode steps under the profiler
@@ -722,34 +930,33 @@ def phase_serve(torch, rglru, swa_attn, launches: dict) -> None:
         t0 = time.perf_counter()
         gen = serve.generate(params, cfg, prompt, 4)
         wall = time.perf_counter() - t0
-    emit({"phase": "profile", "run": "serve-recurrentgemma-2b-32",
+    emit({"phase": "profile", "run": f"serve-{arch}-32",
           "new_tokens": 4, "prefill_s": gen.prefill_s,
           "decode_s": gen.decode_s, **device_summary(prof, wall)})
     del params, gen
     torch.cuda.empty_cache()
 
 
-def phase_serve_parity(torch) -> None:
+def phase_serve_parity(torch, arch: str) -> None:
     """The port on the card against the port on the CPU at full width and
-    ``PARITY``'s depth, from the same weights: the CPU is fed the card's
-    tokens, and every step's logits must agree to ``rtol`` of the step's
-    largest |logit|. Prints how many of the card's tokens the CPU's argmax
-    gives too."""
+    ``PARITY[arch]``'s depth, from the same weights: the CPU is fed the
+    card's tokens, and every step's logits must agree to ``rtol`` of the
+    step's largest |logit|. Prints how many of the card's tokens the CPU's
+    argmax gives too."""
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.utils import pytree as pt
 
     dev = torch.device("cuda:0")
-    cfg = dataclasses.replace(serve.serve_config("recurrentgemma-2b",
-                                                 reduced=False),
-                              num_layers=PARITY["num_layers"])
+    par = PARITY[arch]
+    cfg = dataclasses.replace(serve.serve_config(arch, reduced=False),
+                              num_layers=par["num_layers"])
     gparams = M.init_model(torch.Generator(device=dev).manual_seed(1), cfg)
     cparams = pt.tree_map(lambda t: t.cpu(), gparams)
-    prompt = serve.make_prompt(cfg, PARITY["batch"], PARITY["prompt"], 0, dev)
-    gen = serve.generate(gparams, cfg, prompt, PARITY["gen"],
-                         keep_logits=True)
+    prompt = serve.make_prompt(cfg, par["batch"], par["prompt"], 0, dev)
+    gen = serve.generate(gparams, cfg, prompt, par["gen"], keep_logits=True)
     t0 = time.perf_counter()
-    cpu = serve.generate(cparams, cfg, prompt.cpu(), PARITY["gen"],
+    cpu = serve.generate(cparams, cfg, prompt.cpu(), par["gen"],
                          feed=gen.tokens.cpu(), keep_logits=True)
     cpu_s = time.perf_counter() - t0
     errs = [float((a.cpu() - b).abs().max() / b.abs().max())
@@ -757,12 +964,12 @@ def phase_serve_parity(torch) -> None:
     agree = float((gen.tokens.cpu() == cpu.tokens).float().mean())
     emit({"phase": "serve_parity", "arch": cfg.arch_id,
           "params": cfg.param_count(), "layers": cfg.num_layers,
-          "batch": PARITY["batch"], "prompt": PARITY["prompt"],
-          "new_tokens": PARITY["gen"], "max_scaled_err_per_step": errs,
-          "rtol": PARITY["rtol"], "token_agreement": agree,
-          "cpu_s": cpu_s})
-    check(max(errs) <= PARITY["rtol"],
-          f"CUDA vs CPU logits: scaled errors {errs}")
+          "batch": par["batch"], "prompt": par["prompt"],
+          "new_tokens": par["gen"], "max_scaled_err_per_step": errs,
+          "rtol": par["rtol"], "token_agreement": agree, "cpu_s": cpu_s})
+    check(max(errs) <= par["rtol"],
+          f"{arch}: CUDA vs CPU logits: scaled errors {errs}")
+    check(agree == 1.0, f"{arch}: CUDA vs CPU tokens agree on {agree}")
     del gparams, cparams
     torch.cuda.empty_cache()
 
@@ -1021,7 +1228,10 @@ def main() -> int:
         from repro_torch.kernels import build
         from repro_torch.kernels.fedagg import fedagg
         from repro_torch.kernels.rglru import rglru
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.kernels.ssd import ssd
         from repro_torch.kernels.swa_attn import swa_attn
+        from repro_torch.models import ssm as SSM
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -1030,11 +1240,16 @@ def main() -> int:
           "TF32 matmuls are on: the batched plain version needs f32")
 
     smi = phase_env(torch)
-    phase_build(build, fedagg, rglru, swa_attn)
+    phase_build(build, [(fedagg.SOURCES, fedagg.load_libraries),
+                        ((rglru.SOURCE,), rglru.load_library),
+                        ((swa_attn.SOURCE,), swa_attn.load_library),
+                        ((ssd.SOURCE,), ssd.load_library)])
     main_rows = phase_kernels(torch, fedagg)
     main_rows.update(phase_q_kernels(torch, fedagg, compression))
     phase_batched_kernels(torch, fedagg, compression)
     main_rows.update(phase_arch_kernels(torch, rglru, swa_attn))
+    main_rows["fedagg_fused"] = phase_fused(torch, fedagg)
+    main_rows["ssd_scan"] = phase_ssd_kernels(torch, ssd_ops, SSM)
     launches: dict = {}
     phase_sims(torch, fedagg, launches)
     bursts = phase_paths(torch, fedagg, compression, launches)
@@ -1048,8 +1263,12 @@ def main() -> int:
         emit(row)
         main_rows[row["name"]] = row
     phase_profile(torch)
-    phase_serve(torch, rglru, swa_attn, launches)
-    phase_serve_parity(torch)
+    serve_kernels = {"rglru_scan": rglru.rglru_scan,
+                     "swa_decode_attention": swa_attn.swa_decode_attention,
+                     "ssd_scan": ssd.ssd_scan}
+    for arch in SERVES:
+        phase_serve(torch, arch, serve_kernels, launches)
+        phase_serve_parity(torch, arch)
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"
@@ -1059,6 +1278,7 @@ def main() -> int:
                                       fed_ref + "178"),
              "fedagg_apply_batched": (fed_csrc + "fedagg_batched.cu",
                                       fed_ref + "232"),
+             "fedagg_fused": (fed_csrc + "fedagg.cu", fed_ref + "278"),
              "fedagg_norms_q": (fed_csrc + "fedagg.cu", fed_ref + "342"),
              "fedagg_axpy_q": (fed_csrc + "fedagg.cu", fed_ref + "379"),
              "fedagg_norms_batched_q": (fed_csrc + "fedagg_batched.cu",
@@ -1069,15 +1289,23 @@ def main() -> int:
                             "src/repro/kernels/rglru/rglru.py:49"),
              "swa_decode_attention": (
                  "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
-                 "src/repro/kernels/swa_attn/swa_attn.py:61")}
+                 "src/repro/kernels/swa_attn/swa_attn.py:61"),
+             "ssd_scan": ("src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                          "src/repro/kernels/ssd/ssd.py:76")}
+    #: kernels that no path of either package launches (checked above
+    #: against the wrappers they equal)
+    off_path = {"fedagg_fused"}
     rows = []
-    for k in (*fedagg.KERNELS, *rglru.KERNELS, *swa_attn.KERNELS):
+    for k in (*fedagg.KERNELS, *rglru.KERNELS, *swa_attn.KERNELS,
+              *ssd.KERNELS):
         name = k.__name__
         r = main_rows[name]
-        check(launches.get(name, 0) > 0, f"{name} was not launched on a path")
+        check(name in off_path or launches.get(name, 0) > 0,
+              f"{name} was not launched on a path")
         rows.append({"name": name, "route": "cuda", "source": where[name][0],
                      "replaces": where[name][1],
-                     "launches": launches[name],
+                     "launches": launches.get(name, 0),
+                     "on_path": name not in off_path,
                      "shape": r.get("shape", [r.get("B"), r.get("n")]),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -9,7 +9,8 @@ from repro_torch.configs.scenarios import (FEMNIST_64, SCENARIOS,
                                            SYNTHETIC_DIURNAL, SYNTHETIC_TRACE)
 
 # importing each module registers its CONFIG into ARCHS
-from repro_torch.configs import h2o_danube_1_8b, recurrentgemma_2b  # noqa: F401
+from repro_torch.configs import (h2o_danube_1_8b, mamba2_1_3b,  # noqa: F401
+                                 recurrentgemma_2b)
 
 
 def get_arch(arch_id: str) -> ModelConfig:

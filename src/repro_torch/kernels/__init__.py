@@ -7,4 +7,5 @@ a module with the ctypes wrappers and their plain PyTorch versions, and
   int8 wire form, and a burst of B arrivals (f32, bf16 or int8 deltas)
 * rglru -- the RG-LRU linear recurrence of a recurrent layer's prefill
 * swa_attn -- one-token decode attention over a ring-buffer KV cache
+* ssd -- the Mamba-2 SSD chunked scan of an SSD layer's prefill
 """

@@ -2,13 +2,15 @@
 //
 // Replaces the JAX package's Pallas kernels kernels/fedagg/fedagg.py::
 // fedagg_norms (_norms_kernel), ::fedagg_axpy (_axpy_kernel),
-// ::fedagg_norms_q (_norms_q_kernel) and ::fedagg_axpy_q (_axpy_q_kernel).
+// ::fedagg_fused (_fused_kernel), ::fedagg_norms_q (_norms_q_kernel) and
+// ::fedagg_axpy_q (_axpy_q_kernel).
 //
-// All four sweeps are bound by device memory: 12 bytes per element with an
+// All five sweeps are bound by device memory: 12 bytes per element with an
 // f32 delta (norms reads x_t, x_stale and delta once; the AXPY reads x_t and
 // delta and writes the result), 10 with a bf16 delta and about 9 with an int8
 // one (1 byte of q plus one f32 scale per 1024 elements), against no more
-// than five flops per element. The design therefore only has to stream:
+// than five flops per element. The fused sweep is the norms sweep that also
+// writes the AXPY: 16 bytes per f32 element, one pass instead of two (24). The design therefore only has to stream:
 // 16-byte loads of x_t per thread, the delta through its loader
 // (fedagg_common.cuh), neighbouring threads on neighbouring addresses, a
 // grid-stride loop over a fixed number of blocks, and nothing staged in
@@ -28,17 +30,30 @@
 namespace fedagg {
 namespace {
 
+// x_t + e * d for one float4 group, the multiply and the add rounded
+// separately (no FMA contraction), as the plain version does.
+__device__ __forceinline__ float4 axpy4(float4 a, float e, float4 c) {
+  return make_float4(
+      __fadd_rn(a.x, __fmul_rn(e, c.x)), __fadd_rn(a.y, __fmul_rn(e, c.y)),
+      __fadd_rn(a.z, __fmul_rn(e, c.z)), __fadd_rn(a.w, __fmul_rn(e, c.w)));
+}
+
 // Stage 1: partial[2*block + {0,1}] = this block's share of
-// [sum (x_t - x_s)^2, sum d^2].
-template <typename L>
+// [sum (x_t - x_s)^2, sum d^2]. With kAxpy (fedagg_fused) the same sweep also
+// writes out = x_t + eta * d; the sums are the same code in the same order,
+// so the partials equal the norms sweep's to the bit.
+template <typename L, bool kAxpy>
 __global__ void __launch_bounds__(kThreads)
 norms_partial(const float* __restrict__ xt, const float* __restrict__ xs,
-              L d, float* __restrict__ partial, int64_t n4) {
+              L d, float* __restrict__ partial, int64_t n4,
+              const float* __restrict__ eta, float* __restrict__ out) {
   float s0 = 0.0f, s1 = 0.0f;
+  const float e = kAxpy ? __ldg(eta) : 0.0f;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
        i += stride) {
     const float4 a = load_f32(xt, i), b = load_f32(xs, i), c = d(i);
+    if (kAxpy) reinterpret_cast<float4*>(out)[i] = axpy4(a, e, c);
     const float dx = a.x - b.x, dy = a.y - b.y, dz = a.z - b.z,
                 dw = a.w - b.w;
     s0 += dx * dx + dy * dy + dz * dz + dw * dw;
@@ -67,8 +82,7 @@ norms_final(const float* __restrict__ partial, int nblocks,
   }
 }
 
-// out = x_t + eta * d, with eta read on the device. The multiply and the add
-// are rounded separately (no FMA contraction), as the plain version does.
+// out = x_t + eta * d, with eta read on the device.
 template <typename L>
 __global__ void __launch_bounds__(kThreads)
 axpy(const float* __restrict__ xt, L d, const float* __restrict__ eta,
@@ -76,20 +90,23 @@ axpy(const float* __restrict__ xt, L d, const float* __restrict__ eta,
   const float e = __ldg(eta);
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += stride) {
-    const float4 a = load_f32(xt, i), c = d(i);
-    reinterpret_cast<float4*>(out)[i] = make_float4(
-        __fadd_rn(a.x, __fmul_rn(e, c.x)), __fadd_rn(a.y, __fmul_rn(e, c.y)),
-        __fadd_rn(a.z, __fmul_rn(e, c.z)), __fadd_rn(a.w, __fmul_rn(e, c.w)));
-  }
+       i += stride)
+    reinterpret_cast<float4*>(out)[i] = axpy4(load_f32(xt, i), e, d(i));
 }
 
+// The norms (eta and axpy_out null) or, with both given, the fused sweep.
 template <typename L>
 int launch_norms(const float* xt, const float* xs, L d, float* partial,
-                 float* out, int64_t n, cudaStream_t stream) {
+                 float* out, int64_t n, cudaStream_t stream,
+                 const float* eta = nullptr, float* axpy_out = nullptr) {
   const int64_t n4 = n / 4;
   const int g = grid_for(n4);
-  norms_partial<L><<<g, kThreads, 0, stream>>>(xt, xs, d, partial, n4);
+  if (axpy_out)
+    norms_partial<L, true><<<g, kThreads, 0, stream>>>(xt, xs, d, partial,
+                                                       n4, eta, axpy_out);
+  else
+    norms_partial<L, false><<<g, kThreads, 0, stream>>>(xt, xs, d, partial,
+                                                        n4, nullptr, nullptr);
   norms_final<<<1, kThreads, 0, stream>>>(partial, g, out);
   return (int)cudaGetLastError();
 }
@@ -154,6 +171,26 @@ int fedagg_axpy_int8(const void* xt, const void* q, const void* scales,
   return launch_axpy((const float*)xt,
                      I8Delta{(const int8_t*)q, (const float*)scales},
                      (const float*)eta, (float*)out, n, (cudaStream_t)stream);
+}
+
+// The fused sweep: axpy_out = x_t + eta * d and out = the norms, in one pass
+// over (x_t, x_stale, d) and the fixed-order fold.
+int fedagg_fused_f32(const void* xt, const void* xs, const void* d,
+                     const void* eta, void* axpy_out, void* partial,
+                     void* out, int64_t n, void* stream) {
+  return launch_norms((const float*)xt, (const float*)xs,
+                      F32Delta{(const float*)d}, (float*)partial,
+                      (float*)out, n, (cudaStream_t)stream,
+                      (const float*)eta, (float*)axpy_out);
+}
+
+int fedagg_fused_bf16(const void* xt, const void* xs, const void* d,
+                      const void* eta, void* axpy_out, void* partial,
+                      void* out, int64_t n, void* stream) {
+  return launch_norms((const float*)xt, (const float*)xs,
+                      BF16Delta{(const uint16_t*)d}, (float*)partial,
+                      (float*)out, n, (cudaStream_t)stream,
+                      (const float*)eta, (float*)axpy_out);
 }
 
 const char* fedagg_error_string(int code) {

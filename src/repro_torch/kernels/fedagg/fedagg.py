@@ -3,6 +3,8 @@
   one arrival   fedagg_norms : one pass over (x_t, x_stale, delta) emitting
                 [||x_t - x_stale||^2, ||delta||^2] -> gamma, eta (Eq. 6/7);
                 fedagg_axpy  : one pass computing x_t + eta * delta (Eq. 5).
+  eta known     fedagg_fused : both in one pass, for an eta fixed before the
+                sweep; no server path of either package calls it.
   int8 wire     fedagg_norms_q / fedagg_axpy_q : the same two sweeps with the
                 delta as int8 ``q`` and one f32 scale per ``QBLOCK`` elements,
                 dequantized in registers.
@@ -82,6 +84,12 @@ def axpy_plain(x_t: torch.Tensor, delta: torch.Tensor,
     """x_t + eta * delta in f32, cast to the dtype of x_t."""
     return (x_t.float() + eta.reshape(()).float() * delta.float()
             ).to(x_t.dtype)
+
+
+def fused_plain(x_t: torch.Tensor, x_stale: torch.Tensor,
+                delta: torch.Tensor, eta: torch.Tensor):
+    """(:func:`axpy_plain`, :func:`norms_plain`) of the same inputs."""
+    return axpy_plain(x_t, delta, eta), norms_plain(x_t, x_stale, delta)
 
 
 def dequantize_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -213,6 +221,8 @@ def load_libraries() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
     _bind(lib, ("fedagg_axpy_f32", "fedagg_axpy_bf16"),
           [_VP, _VP, _VP, _VP, _I64, _VP])
     _bind(lib, ("fedagg_axpy_int8",), [_VP, _VP, _VP, _VP, _VP, _I64, _VP])
+    _bind(lib, ("fedagg_fused_f32", "fedagg_fused_bf16"),
+          [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _VP])
     _bind(lib, ("fedagg_norms_blocks",), [_I64])
     _bind(lib, ("fedagg_error_string",), [_INT], ctypes.c_char_p)
     _bind(blib, ("fedagg_norms_batched_f32", "fedagg_norms_batched_bf16"),
@@ -308,6 +318,40 @@ def fedagg_axpy(x_t: torch.Tensor, delta: torch.Tensor,
     _raise_on(err, "fedagg_axpy")
     fedagg_axpy.launches += 1
     return out
+
+
+def fedagg_fused(x_t: torch.Tensor, x_stale: torch.Tensor,
+                 delta: torch.Tensor, eta: torch.Tensor):
+    """(x_t + eta * delta into a NEW f32 tensor, [||x_t - x_stale||^2,
+    ||delta||^2] as a (2,) f32 tensor) in one sweep; inputs as for
+    :func:`fedagg_norms` and ``eta`` as for :func:`fedagg_axpy`.
+
+    Replaces the JAX package's ``kernels/fedagg/fedagg.py::fedagg_fused``
+    (``_fused_kernel``), the single-pass variant for an eta known before
+    the sweep. Bound by device memory: it reads x_t, x_stale and delta and
+    writes the result, 16 bytes per element, for 7 flops. It is the
+    :func:`fedagg_norms` kernel that also writes the AXPY: the sums are the
+    same code in the same order and the output rounds as
+    :func:`fedagg_axpy`'s, so both outputs equal those two wrappers' to the
+    bit. One call is one launch (the sweep, then the fixed-order fold).
+    """
+    _check_inputs(x_t, [("x_stale", x_stale, _F32),
+                        ("delta", delta, _DELTA_DTYPES)])
+    _check_eta(eta, (), x_t)
+    if x_t.device.type == "cpu":
+        return fused_plain(x_t, x_stale, delta, eta)
+    lib = load_libraries()[0]
+    eta = eta.reshape(1).contiguous()
+    buf = _norms_buffer(lib, x_t)
+    out = torch.empty_like(x_t)
+    fn = (lib.fedagg_fused_f32 if delta.dtype == torch.float32
+          else lib.fedagg_fused_bf16)
+    err = fn(x_t.data_ptr(), x_stale.data_ptr(), delta.data_ptr(),
+             eta.data_ptr(), out.data_ptr(), buf.data_ptr() + 8,
+             buf.data_ptr(), x_t.shape[0], build.stream(x_t.device))
+    _raise_on(err, "fedagg_fused")
+    fedagg_fused.launches += 1
+    return out, buf[:2]
 
 
 def fedagg_norms_q(x_t: torch.Tensor, x_stale: torch.Tensor, q: torch.Tensor,
@@ -523,7 +567,7 @@ def fedagg_apply_batched_q(x_t: torch.Tensor, qs: torch.Tensor,
 
 
 KERNELS = (fedagg_norms, fedagg_axpy, fedagg_norms_batched,
-           fedagg_apply_batched, fedagg_norms_q, fedagg_axpy_q,
+           fedagg_apply_batched, fedagg_fused, fedagg_norms_q, fedagg_axpy_q,
            fedagg_norms_batched_q, fedagg_apply_batched_q)
 
 

@@ -5,12 +5,19 @@ The JAX package's ``launch/serve.py`` in PyTorch: prefill with
 ``forward(collect_cache=True, logits_slice=1)`` builds the caches, the
 attention caches are laid into ring buffers of the sliding window, then
 tokens decode one at a time (greedy). On CUDA every RG-LRU layer's prefill
-runs the hand-written scan kernel and every attention layer's decode step
-the ring-buffer decode kernel.
+runs the hand-written scan kernel, every SSD layer's prefill the SSD chunked
+scan kernel, and every attention layer's decode step the ring-buffer decode
+kernel. The recurrent (RG-LRU, SSD) states and conv windows pass from the
+prefill to the decode caches as they are.
+
+An SSD model (mamba2-1.3b) scans its prompt in chunks of
+``cfg.ssm.chunk_size`` (256; 32 reduced): a prompt longer than the chunk must
+be a multiple of it, as in the reference, and raises otherwise.
 
 Usage (``--device cpu`` runs on the CPU; the default is CUDA):
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 2 \\
       --prompt-len 32 --gen-len 16
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ def _prefill_into_decode_cache(cfg, caches, prompt_len, window, cache_len):
         if kind == "attn":
             k, v = path_cache
             return (fit(k), fit(v))
-        return path_cache  # rglru states carry over directly
+        return path_cache  # rglru / ssd states carry over directly
 
     pat, n_groups, tail = M._grouping(cfg)
     out = {}

@@ -8,10 +8,10 @@ plain copy (``repro_torch.convert.params_from_numpy``). Where the reference
 runs ``jax.lax.scan`` over the groups, this module loops over the group
 index in Python.
 
-This slice has the attention and RG-LRU blocks with dense MLPs (the
-recurrentgemma-2b and h2o-danube-1.8b configurations). The Mamba-2 SSD block
-(ROADMAP.md B9) and mixture-of-experts MLPs (A18) raise
-``NotImplementedError``.
+It has the attention and RG-LRU blocks with dense MLPs (the
+recurrentgemma-2b and h2o-danube-1.8b configurations) and the Mamba-2 SSD
+block, a norm and the SSD mixer with no MLP (mamba2-1.3b). Mixture-of-experts
+MLPs (ROADMAP.md A18) raise ``NotImplementedError``.
 
 Public entry points:
   model_defs(cfg)                  -> ParamDef tree
@@ -31,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import init_params, stack_defs, torch_dtype
 from repro_torch.utils import pytree as pt
 
@@ -43,11 +44,7 @@ PyTree = Any
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind == "ssd":
-        raise NotImplementedError(
-            "the Mamba-2 SSD block and its ssd_scan kernel are not ported "
-            "yet (ROADMAP.md B9)")
-    if kind not in ("attn", "rglru"):
+    if kind not in ("attn", "rglru", "ssd"):
         raise ValueError(kind)
     if cfg.moe is not None:
         raise NotImplementedError(
@@ -59,6 +56,8 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, PyTree]:
     if kind == "attn":
         return {"norm1": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
                 "norm2": L.norm_defs(cfg), "ffn": L.mlp_defs(cfg)}
+    if kind == "ssd":
+        return {"norm1": L.norm_defs(cfg), "ssd": SSM.ssd_defs(cfg)}
     return {"norm1": L.norm_defs(cfg), "rglru": RG.rglru_defs(cfg),
             "norm2": L.norm_defs(cfg), "ffn": L.mlp_defs(cfg)}
 
@@ -70,6 +69,11 @@ def block_fwd(p, x: torch.Tensor, positions, cfg: ModelConfig, kind: str, *,
     """One residual block. Returns (y, new_cache, aux_loss)."""
     _check_kind(cfg, kind)
     h = L.norm_fwd(p["norm1"], x, cfg.norm)
+    if kind == "ssd":
+        ssm_state, conv = cache if cache is not None else (None, None)
+        h, new_cache = SSM.ssd_block_fwd(p["ssd"], h, cfg,
+                                         ssm_state=ssm_state, conv_state=conv)
+        return x + h, new_cache, 0.0
     if kind == "attn":
         h, new_cache = L.attention_fwd(
             p["attn"], h, positions, cfg, window=window,
@@ -150,6 +154,11 @@ def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
     if kind == "attn":
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         return (TensorSpec(shape, dt), TensorSpec(shape, dt))
+    if kind == "ssd":
+        dinner, nheads, hd, n = SSM.ssd_dims(cfg)
+        conv_dim = dinner + 2 * cfg.ssm.ngroups * n
+        return (TensorSpec((batch, nheads, hd, n), torch.float32),
+                TensorSpec((batch, cfg.ssm.conv_width - 1, conv_dim), dt))
     w = cfg.rglru_width or cfg.d_model
     return (TensorSpec((batch, w), torch.float32),
             TensorSpec((batch, cfg.conv1d_width - 1, w), dt))

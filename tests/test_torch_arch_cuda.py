@@ -9,9 +9,11 @@ Tolerances. rglru_scan: atol 1e-5 + rtol 1e-5 against the plain loop (the
 carry across chunks is summed in another order, and the card's expf may
 differ from the CPU's in the last bit). swa_decode_attention: atol 1e-5
 with f32 inputs (a softmax merged from 64-slot pieces), and 8e-3 with bf16
-(the output rounds to bf16 once: half an ulp of values below 2). Model
-logits on the card against the CPU: rtol/atol 1e-4, as the CPU tests hold
-the port to the reference.
+(the output rounds to bf16 once: half an ulp of values below 2).
+ssd_scan: 1e-4 of the largest |y| (and of the largest |state|) against the
+plain version, whose products cuBLAS sums in another order over up to
+L * N = 32,768 terms. Model logits on the card against the CPU: rtol/atol
+1e-4, as the CPU tests hold the port to the reference.
 """
 import dataclasses
 
@@ -20,10 +22,13 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels.rglru import rglru
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.swa_attn import ops as swa_ops
 from repro_torch.kernels.swa_attn import swa_attn
 from repro_torch.launch import serve
 from repro_torch.models import model as M
+from repro_torch.models import ssm as SSM
 from repro_torch.utils import pytree as pt
 
 requires_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -113,6 +118,89 @@ def test_swa_rejects_what_the_kernel_does_not_take():
         swa_ops.decode_attention(q[:, None], k.cpu(), k, 1)
 
 
+def ssd_inputs(bs, s, h, p, g, n, seed, h0=False, dt_scale=1.0):
+    """Model-layout SSD inputs on the card: dt softplus'ed, a = -exp(0.3 z),
+    b and c scaled by 0.3, as the CPU tests draw them."""
+    gg = gen(seed)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gg)
+    return (rnd(bs, s, h, p),
+            dt_scale * torch.nn.functional.softplus(rnd(bs, s, h)),
+            -torch.exp(0.3 * rnd(h)), 0.3 * rnd(bs, s, g, n),
+            0.3 * rnd(bs, s, g, n), rnd(bs, h, p, n) if h0 else None)
+
+
+def assert_scaled_close(got, want, tol=1e-4):
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= tol, err
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(2, 512, 8, 64, 1, 128, 256),
+                                   (2, 40, 8, 64, 1, 128, 256),
+                                   (1, 96, 6, 16, 3, 16, 32),
+                                   (2, 512, 8, 64, 4, 128, 256),
+                                   (3, 64, 4, 8, 2, 16, 64),
+                                   (1, 1, 2, 64, 1, 128, 256)])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+def test_ssd_matches_plain(shape, with_h0):
+    """(B, S, H, P, G, N, chunk): the serve widths over two chunks, a ragged
+    chunk (S = 40 < 256), the reduced widths, groups of two heads, a 64-step
+    chunk, one step. Held against the plain version and the model twin."""
+    bs, s, h, p, g, n, chunk = shape
+    x, dt, a, b, c, h0 = ssd_inputs(bs, s, h, p, g, n, seed=s + h,
+                                    h0=with_h0)
+    ssd.ssd_scan.launches = 0
+    y, st = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, initial_state=h0)
+    assert ssd.ssd_scan.launches == 1
+    ry, rst = ssd_ops.ssd_chunked_plain(x, dt, a, b, c, chunk, h0)
+    torch.cuda.synchronize()
+    assert_scaled_close(y, ry)
+    assert_scaled_close(st, rst)
+    my, mst = SSM.ssd_chunked(x, dt, a, b, c, min(chunk, s),
+                              initial_state=h0)
+    assert_scaled_close(y, my)
+    assert_scaled_close(st, mst)
+    y2, st2 = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, initial_state=h0)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@requires_cuda
+def test_ssd_row_layout_matches_plain():
+    """ssd_scan on the (BH, S, P) row layout, the TPU kernel's."""
+    x, dt, a, b, c, _ = ssd_inputs(1, 256, 6, 16, 1, 32, seed=9)
+    xr, dtr = x[0].transpose(0, 1).contiguous(), dt[0].t().contiguous()
+    br = b[0, :, 0][None].expand(6, -1, -1).contiguous()
+    cr = c[0, :, 0][None].expand(6, -1, -1).contiguous()
+    y, st = ssd.ssd_scan(xr, dtr, a, br, cr, chunk=128)
+    ry, rst = ssd.ssd_scan_plain(xr, dtr, a, br, cr, chunk=128)
+    assert_scaled_close(y, ry)
+    assert_scaled_close(st, rst)
+
+
+@requires_cuda
+def test_ssd_large_decay_is_finite():
+    """dt * a near -50 per step: exp(cum[l] - cum[s]) overflows above the
+    diagonal, where the kernel never evaluates it."""
+    x, dt, a, b, c, h0 = ssd_inputs(2, 512, 4, 64, 1, 128, seed=3, h0=True)
+    dt = torch.full_like(dt, 50.0)
+    a = torch.full_like(a, -1.0)
+    y, st = ssd_ops.ssd_chunked(x, dt, a, b, c, 256, initial_state=h0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    ry, rst = ssd_ops.ssd_chunked_plain(x, dt, a, b, c, 256, h0)
+    assert_scaled_close(y, ry)
+    assert_scaled_close(st, rst)
+
+
+@requires_cuda
+def test_ssd_rejects_what_the_kernel_does_not_take():
+    x, dt, a, b, c, _ = ssd_inputs(1, 64, 2, 128, 1, 16, seed=1)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_ops.ssd_chunked(x, dt, a, b, c, 64)
+    x, dt, a, b, c, _ = ssd_inputs(1, 96, 2, 16, 1, 16, seed=1)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_ops.ssd_chunked(x, dt, a, b, c, 64)
+
+
 def _reduced(arch, **kw):
     return dataclasses.replace(configs.reduced(configs.get_arch(arch)),
                                dtype="float32", **kw)
@@ -134,6 +222,26 @@ def test_model_on_cuda_matches_cpu(arch):
     kinds = cfg.layer_kinds
     assert rglru.rglru_scan.launches == kinds.count("rglru")
     assert swa_attn.swa_decode_attention.launches == 8 * kinds.count("attn")
+    want = serve.generate(params, cfg, prompt, 9, feed=got.tokens.cpu(),
+                          keep_logits=True)
+    for a, b in zip(got.logits, want.logits):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("prompt_len", [96, 20])
+def test_mamba2_on_cuda_matches_cpu(prompt_len):
+    """mamba2-1.3b reduced, 4 layers: the prefill (three chunks, or a chunk
+    cut to 20) launches the SSD kernel once per layer, and the card's
+    logits follow the CPU's over eight decode steps."""
+    cfg = _reduced("mamba2-1.3b", num_layers=4)
+    params = M.init_model(torch.Generator().manual_seed(0), cfg)
+    gparams = pt.tree_map(lambda t: t.cuda(), params)
+    prompt = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                           generator=torch.Generator().manual_seed(1))
+    ssd.ssd_scan.launches = 0
+    got = serve.generate(gparams, cfg, prompt.cuda(), 9, keep_logits=True)
+    assert ssd.ssd_scan.launches == 4
     want = serve.generate(params, cfg, prompt, 9, feed=got.tokens.cpu(),
                           keep_logits=True)
     for a, b in zip(got.logits, want.logits):

@@ -1,14 +1,17 @@
 """The port's architecture models (models/params, layers, ssm, rglru, model)
-against the JAX package's, for the two configurations of the serving slice,
-recurrentgemma-2b (RG-LRU and local attention) and h2o-danube-1.8b (sliding
-window attention), at the reduced size (``reduced()``, f32) and at a depth
-with a tail of remainder layers. The reference's weights are drawn once with
-jax.random and carried across (``convert.params_from_numpy``); tokens come
-from numpy.
+against the JAX package's, for the three configurations of the serving
+slices, recurrentgemma-2b (RG-LRU and local attention), h2o-danube-1.8b
+(sliding window attention) and mamba2-1.3b (the SSD block), at the reduced
+size (``reduced()``, f32) and at a depth with a tail of remainder layers (a
+deeper stack for mamba2, whose pattern is one block). The reference's
+weights are drawn once with jax.random and carried across
+(``convert.params_from_numpy``); tokens come from numpy.
 
 Tolerances: logits rtol/atol 1e-4 (f32 throughout; the sums of the dense
-products, the chunked softmax and the scan go in other orders); decode
-against forward 1e-3/1e-4, the reference's own (tests/test_models.py).
+products, the chunked softmax and the scans go in other orders, and
+torch's softplus and silu differ from jax.nn's in the last bit of some
+elements); decode against forward 1e-3/1e-4, the reference's own
+(tests/test_models.py).
 """
 import dataclasses
 
@@ -21,16 +24,21 @@ import torch
 from repro import configs as C
 from repro.models import layers as JL
 from repro.models import model as JM
+from repro.models import ssm as JS
 from repro.models.params import count_params as jcount
+from repro.models.params import init_params as jinit_params
 from repro.models.params import is_def as jis_def
 from repro_torch import configs as TC
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import params as TP
+from repro_torch.models import ssm as TS
 from repro_torch.utils import pytree as pt
 
-ARCHS = ["recurrentgemma-2b", "h2o-danube-1.8b"]
+ARCHS = ["recurrentgemma-2b", "h2o-danube-1.8b", "mamba2-1.3b"]
+#: the architectures with attention layers (a sliding window to ring)
+WINDOWED = ARCHS[:2]
 #: (num_layers) depths: the reduced default, and one with a tail
 DEPTHS = [None, 5]
 
@@ -166,7 +174,7 @@ def test_decode_matches_forward(arch):
     close(lg[:, 0], full[:, -1], rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", WINDOWED)
 def test_ring_decode_matches_windowed_forward(arch):
     """Ring-buffer decode with window 8 equals the full forward with the
     same window once the context exceeds it
@@ -245,16 +253,80 @@ def test_mlp_gelu_is_the_tanh_form(activation):
 
 
 #: configurations of later slices and the ROADMAP item each raise names
-LATER = {"mamba2-1.3b": "B9", "qwen2-moe-a2.7b": "A18",
-         "musicgen-large": "A18", "qwen2-vl-72b": "A18"}
+LATER = {"qwen2-moe-a2.7b": "A18", "musicgen-large": "A18",
+         "qwen2-vl-72b": "A18"}
+#: configurations that raised before their slice was ported
+PORTED = ("mamba2-1.3b",)
 
 
-@pytest.mark.parametrize("arch", sorted(LATER))
+@pytest.mark.parametrize("arch", sorted([*LATER, *PORTED]))
 def test_later_families_raise(arch):
-    """ssd (Mamba-2), MoE, audio and vlm configurations raise naming their
-    ROADMAP item when the model is declared."""
+    """MoE, audio and vlm configurations raise naming their ROADMAP item
+    when the model is declared; a ported one (mamba2-1.3b, the SSD block)
+    declares the reference's tree instead."""
     jcfg = C.reduced(C.get_arch(arch))
     tcfg = TC.ModelConfig(**{f.name: getattr(jcfg, f.name)
                              for f in dataclasses.fields(jcfg)})
+    if arch in PORTED:
+        assert (tdef_paths(TM.model_defs(tcfg))
+                == jdef_paths(JM.model_defs(jcfg)))
+        return
     with pytest.raises(NotImplementedError, match=LATER[arch]):
         TM.model_defs(tcfg)
+
+
+def test_ssd_cache_specs_equal():
+    """The SSD decode cache: an f32 (B, H, P, N) state and a (B, W-1,
+    conv_dim) conv window in the model's dtype, per layer, stacked."""
+    for dtype in ("float32", "bfloat16"):
+        jcfg, tcfg = (dataclasses.replace(cfg, dtype=dtype)
+                      for cfg in cfgs("mamba2-1.3b"))
+        js = jax.tree.leaves(JM.cache_specs(jcfg, 3, 40, 0))
+        ts = pt.tree_leaves(TM.cache_specs(tcfg, 3, 40, 0))
+        assert [tuple(t.shape) for t in ts] == [j.shape for j in js]
+        assert [str(t.dtype).removeprefix("torch.") for t in ts] == [
+            str(j.dtype) for j in js]
+
+
+@pytest.mark.parametrize("mode", ["prefill", "continue", "decode",
+                                  "short"])
+def test_ssd_block_matches_reference(mode):
+    """The Mamba-2 block at the reduced mamba2-1.3b width, on the
+    reference's weights: a prefill of three chunks from zero state, a
+    prefill continuing from a state (the scan's h0), one decode step, and a
+    prefill shorter than the chunk (the chunk cut to S)."""
+    jcfg, tcfg = cfgs("mamba2-1.3b")
+    jp = jinit_params(jax.random.PRNGKey(6), JS.ssd_defs(jcfg))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(7)
+    s = {"decode": 1, "short": 20}.get(mode, 96)
+    x = rng.normal(size=(2, s, jcfg.d_model)).astype(np.float32)
+    dinner, nheads, hd, n = JS.ssd_dims(jcfg)
+    conv_dim = dinner + 2 * jcfg.ssm.ngroups * n
+    state = (None, None) if mode in ("prefill", "short") else (
+        rng.normal(size=(2, nheads, hd, n)).astype(np.float32),
+        rng.normal(size=(2, jcfg.ssm.conv_width - 1, conv_dim)
+                   ).astype(np.float32))
+    jst = [None if a is None else jnp.asarray(a) for a in state]
+    tst = [None if a is None else torch.from_numpy(a) for a in state]
+    jy, (jssm, jconv) = JS.ssd_block_fwd(jp, jnp.asarray(x), jcfg,
+                                         ssm_state=jst[0], conv_state=jst[1])
+    ty, (tssm, tconv) = TS.ssd_block_fwd(tp, torch.from_numpy(x), tcfg,
+                                         ssm_state=tst[0], conv_state=tst[1])
+    assert ty.shape == (2, s, jcfg.d_model)
+    for t, j in ((ty, jy), (tssm, jssm), (tconv, jconv)):
+        close(t, j)
+
+
+def test_ssd_decode_step_matches_reference():
+    rng = np.random.default_rng(8)
+    b, h, p, g, n = 3, 4, 8, 2, 16
+    arrs = (rng.normal(size=(b, h, p, n)), rng.normal(size=(b, h, p)),
+            np.log1p(np.exp(rng.normal(size=(b, h)))),
+            -np.exp(0.3 * rng.normal(size=(h,))),
+            rng.normal(size=(b, g, n)), rng.normal(size=(b, g, n)))
+    arrs = [a.astype(np.float32) for a in arrs]
+    jy, jst = JS.ssd_decode_step(*map(jnp.asarray, arrs))
+    ty, tst = TS.ssd_decode_step(*map(torch.from_numpy, arrs))
+    close(ty, jy, rtol=1e-5, atol=1e-5)
+    close(tst, jst, rtol=1e-5, atol=1e-5)

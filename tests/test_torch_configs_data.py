@@ -20,6 +20,7 @@ TASKS = ("synthetic-1-1", "femnist", "shakespeare")
 #: modules the port keeps as copies of the reference's
 COPIED = ("utils.registry", "configs.paper_tasks", "configs.scenarios",
           "configs.recurrentgemma_2b", "configs.h2o_danube_1_8b",
+          "configs.mamba2_1_3b",
           "data.synthetic", "data.femnist", "data.shakespeare",
           "data.pipeline", "core.events", "core.behavior", "core.screening",
           "core.adaptive_k")
@@ -70,7 +71,7 @@ class TestFedConfig:
                 == dataclasses.asdict(C.PAPER_TASKS[name]))
 
     @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
-                                      "h2o-danube-1.8b"])
+                                      "h2o-danube-1.8b", "mamba2-1.3b"])
     def test_arch_configs_equal(self, arch):
         """The serving slice's architectures, full and reduced."""
         assert (dataclasses.asdict(TC.get_arch(arch))

@@ -70,6 +70,24 @@ class TestAgainstPallas:
         assert out.dtype == torch.float32 and out.shape == (n,)
         np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-7)
 
+    def test_fused(self, n, delta_dtype):
+        """fedagg_fused: the reference's one-pass (AXPY, norms) pair, held
+        as tests/test_kernels.py holds it (rtol 1e-5); the plain version is
+        the AXPY's and the norms' plain versions, to the bit."""
+        (jx, jxs, jd), (tx, txs, td) = inputs(n, delta_dtype)
+        eta = torch.tensor(0.37)
+        jout, jpart = jfed.fedagg_fused(jx, jxs, jd, jnp.float32(0.37),
+                                        interpret=True)
+        out, part = fedagg.fedagg_fused(tx, txs, td, eta)
+        assert out.dtype == torch.float32 and out.shape == (n,)
+        assert part.dtype == torch.float32 and part.shape == (2,)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(part.numpy(), np.asarray(jpart),
+                                   rtol=1e-5)
+        assert torch.equal(out, fedagg.axpy_plain(tx, td, eta))
+        assert torch.equal(part, fedagg.norms_plain(tx, txs, td))
+
     def test_flat_aggregate(self, n, delta_dtype):
         (jx, jxs, jd), (tx, txs, td) = inputs(n, delta_dtype)
         jr = jops.flat_aggregate(jx, jxs, jd, lam=LAM, eps=EPS, cap=3.0)
@@ -146,8 +164,10 @@ class TestWrapper:
         _, (tx, txs, td) = inputs(BLOCK, jnp.float32)
         ops.flat_aggregate(tx, txs, td, lam=1.0, eps=1.0)
         fedagg.fedagg_axpy(tx, td, torch.tensor(0.5))
+        fedagg.fedagg_fused(tx, txs, td, torch.tensor(0.5))
         assert fedagg.fedagg_norms.launches == 0
         assert fedagg.fedagg_axpy.launches == 0
+        assert fedagg.fedagg_fused.launches == 0
 
     def test_axpy_writes_a_new_tensor(self):
         _, (tx, _, td) = inputs(BLOCK, jnp.float32)
@@ -197,6 +217,20 @@ class TestWrapper:
             x = torch.zeros(2 * BLOCK)[::2]
         with pytest.raises((TypeError, ValueError)):
             fedagg.fedagg_axpy(x, d, eta)
+
+    @pytest.mark.parametrize("case", ["stale_short", "delta_int",
+                                      "eta_float"])
+    def test_fused_rejects(self, case):
+        x, xs, d = (torch.zeros(BLOCK) for _ in range(3))
+        eta = torch.tensor(1.0)
+        if case == "stale_short":
+            xs = xs[:BLOCK // 2]
+        elif case == "delta_int":
+            d = d.int()
+        else:
+            eta = 1.0
+        with pytest.raises((TypeError, ValueError)):
+            fedagg.fedagg_fused(x, xs, d, eta)
 
     def test_layout_constants_and_batch_knee(self):
         assert fedagg.BLOCK == jfed.BLOCK_ROWS * jfed.LANES

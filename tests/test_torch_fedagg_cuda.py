@@ -55,6 +55,29 @@ def test_kernels_match_plain_versions(n, delta_dtype):
 
 
 @requires_cuda
+@pytest.mark.parametrize("n", [BLOCK, 4 * BLOCK, 64 * BLOCK])
+@pytest.mark.parametrize("delta_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_equals_axpy_and_norms(n, delta_dtype):
+    """fedagg_fused's output is fedagg_axpy's and its partials are
+    fedagg_norms', to the bit, on the same inputs; it writes a new tensor
+    and counts one launch."""
+    fedagg.reset_launches()
+    x, xs, d = inputs(n, delta_dtype, seed=2)
+    eta = torch.tensor(0.37, device="cuda")
+    out, part = fedagg.fedagg_fused(x, xs, d, eta)
+    assert fedagg.fedagg_fused.launches == 1
+    assert torch.equal(out, fedagg.fedagg_axpy(x, d, eta))
+    assert torch.equal(part, fedagg.fedagg_norms(x, xs, d))
+    assert out.data_ptr() != x.data_ptr()
+    pout, ppart = fedagg.fused_plain(x, xs, d, eta)
+    assert torch.equal(out, pout)
+    torch.testing.assert_close(part, ppart, rtol=1e-5, atol=0.0)
+    again = fedagg.fedagg_fused(x, xs, d, eta)
+    assert torch.equal(out, again[0]) and torch.equal(part, again[1])
+
+
+@requires_cuda
 def test_flat_aggregate_cuda_matches_cpu():
     x, xs, d = inputs(2 * BLOCK, torch.float32, seed=1)
     gpu = ops.flat_aggregate(x, xs, d, lam=5.0, eps=5.0, cap=4.0)

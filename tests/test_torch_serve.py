@@ -1,10 +1,12 @@
-"""The port's serving loop (launch/serve.py) against the JAX package's,
-recurrentgemma-2b at the reduced size, f32: the reference's
-``repro.launch.serve.serve`` draws its weights with
-``init_model(PRNGKey(seed), cfg)`` after its own config changes; the test
-draws the same weights and hands them to the port's ``serve(params=...)``.
-Two runs: a 16-token prompt with 4 new tokens, and an 80-token prompt with
-8, which wraps the reduced model's 64-slot attention ring.
+"""The port's serving loop (launch/serve.py) against the JAX package's, at
+the reduced size, f32: the reference's ``repro.launch.serve.serve`` draws its
+weights with ``init_model(PRNGKey(seed), cfg)`` after its own config
+changes; the test draws the same weights and hands them to the port's
+``serve(params=...)``. recurrentgemma-2b: a 16-token prompt with 4 new
+tokens, and an 80-token prompt with 8, which wraps the reduced model's
+64-slot attention ring. mamba2-1.3b: a 16-token prompt (under the reduced
+chunk of 32) with 4 new tokens, and a 96-token prompt (three chunks, the
+state carried across them) with 8.
 
 The generated token matrices must be equal. Then both models are fed the
 reference's tokens (teacher forcing) and every step's logits agree within
@@ -23,14 +25,17 @@ from repro.launch import serve as jserve
 from repro.models import model as JM
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.rglru import rglru
+from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.swa_attn import swa_attn
 from repro_torch.launch import serve as tserve
 
 ARCH, BATCH, SEED = "recurrentgemma-2b", 2, 0
+SSD_ARCH = "mamba2-1.3b"
+KERNELS = (rglru.rglru_scan, swa_attn.swa_decode_attention, ssd.ssd_scan)
 
 
-def reference_weights():
-    cfg = dataclasses.replace(C.reduced(C.get_arch(ARCH)), dtype="float32")
+def reference_weights(arch=ARCH):
+    cfg = dataclasses.replace(C.reduced(C.get_arch(arch)), dtype="float32")
     return cfg, JM.init_model(jax.random.PRNGKey(SEED), cfg)
 
 
@@ -53,23 +58,23 @@ def reference_logits(jp, cfg, prompt, feed, gen_len):
     return out
 
 
-@pytest.mark.parametrize("prompt_len,gen_len", [(16, 4), (80, 8)],
-                         ids=["short", "wraps"])
-def test_serve_matches_reference(prompt_len, gen_len):
-    cfg, jp = reference_weights()
-    want = np.array(jserve.serve(ARCH, BATCH, prompt_len, gen_len, SEED,
+def check_serve(arch, prompt_len, gen_len):
+    """The port's tokens equal the reference's, and its teacher-forced
+    logits agree step by step."""
+    cfg, jp = reference_weights(arch)
+    want = np.array(jserve.serve(arch, BATCH, prompt_len, gen_len, SEED,
                                  verbose=False))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
-    rglru.rglru_scan.launches = swa_attn.swa_decode_attention.launches = 0
-    got = tserve.serve(ARCH, BATCH, prompt_len, gen_len, SEED, verbose=False,
+    for k in KERNELS:
+        k.launches = 0
+    got = tserve.serve(arch, BATCH, prompt_len, gen_len, SEED, verbose=False,
                        params=tp, device="cpu")
     assert got.shape == (BATCH, gen_len)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert rglru.rglru_scan.launches == 0          # plain versions on the CPU
-    assert swa_attn.swa_decode_attention.launches == 0
+    assert all(k.launches == 0 for k in KERNELS)   # plain versions on the CPU
 
     # teacher-forced on the reference's tokens, step by step
-    tcfg = tserve.serve_config(ARCH)
+    tcfg = tserve.serve_config(arch)
     prompt = tserve.make_prompt(tcfg, BATCH, prompt_len, SEED, "cpu")
     gen = tserve.generate(tp, tcfg, prompt, gen_len,
                           feed=torch.from_numpy(want).long(),
@@ -79,6 +84,25 @@ def test_serve_matches_reference(prompt_len, gen_len):
     for t, j in zip(gen.logits, jl):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("prompt_len,gen_len", [(16, 4), (80, 8)],
+                         ids=["short", "wraps"])
+def test_serve_matches_reference(prompt_len, gen_len):
+    check_serve(ARCH, prompt_len, gen_len)
+
+
+@pytest.mark.parametrize("prompt_len,gen_len", [(16, 4), (96, 8)],
+                         ids=["under_chunk", "three_chunks"])
+def test_serve_mamba2_matches_reference(prompt_len, gen_len):
+    check_serve(SSD_ARCH, prompt_len, gen_len)
+
+
+def test_mamba2_prompt_must_fill_its_chunks():
+    """A prompt longer than the chunk (32 reduced) and not a multiple of
+    it fails in the reference's scan; the port raises, and does not pad."""
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tserve.serve(SSD_ARCH, 1, 40, 2, SEED, verbose=False, device="cpu")
 
 
 def test_ring_layout_of_the_prefill_cache():
