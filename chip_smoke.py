@@ -114,6 +114,11 @@ SWA_SHAPES = [(4, 2048, 10, 1, 256, 0.0, (2048,) * 4),
 #: across chunks and the decode's merge of pieces sum in other orders
 RGLRU_ATOL = 1e-5
 SWA_ATOL = 1e-5
+#: turns of a kernel and its library call, alternating which goes first, in
+#: the rows that hold the AXPY against torch.add
+TURN_PAIRS = 10
+#: the AXPY's extra row: the flat state of a ~67M-param model
+AXPY_BIG = 1 << 26
 #: fedagg_fused's lengths: the synthetic-1-1 flat state and the flat states
 #: of a ~67M- and a ~270M-param model
 FUSED_SIZES = (65536, 1 << 26, 1 << 28)
@@ -213,6 +218,26 @@ def device_ms(fn, reps: int = 20, trials: int = 7) -> float:
 
 def timings(fn, reps: int) -> dict:
     return {"device": device_ms(fn, reps), "call": call_ms(fn, reps)}
+
+
+def turns(fn, lib, reps: int, pairs: int = TURN_PAIRS):
+    """Device ms of a kernel and of the library call it is held against,
+    taken in ``pairs`` turns of the two, alternating which goes first: the
+    median of each side, the median of the per-turn ratios kernel/library,
+    and the spread of the library's times (max - min over median), so that
+    a drift of the card's clock favours neither and the reader sees how far
+    one number may be off. Host ms per call once each."""
+    ks, ls = [], []
+    for i in range(pairs):
+        order = ((fn, ks), (lib, ls)) if i % 2 == 0 else ((lib, ls), (fn, ks))
+        for f, out in order:
+            out.append(device_ms(f, reps))
+    med = statistics.median
+    k = {"device": med(ks), "call": call_ms(fn, reps),
+         "ratio": med(a / b for a, b in zip(ks, ls))}
+    lt = {"device": med(ls), "call": call_ms(lib, reps),
+          "spread": (max(ls) - min(ls)) / med(ls)}
+    return k, lt
 
 
 def rotated_ms(fn, make, set_bytes: int) -> float:
@@ -325,42 +350,60 @@ def phase_kernels(torch, fedagg) -> dict:
         if n == SIZES[0][1]:
             main["fedagg_norms"] = row
 
-        out = fedagg.fedagg_axpy(x, d, eta)
-        ref = fedagg.axpy_plain(x, d, eta)
-        ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))
-                              ) - ref.abs()
-        err = (out - ref).abs()
-        ulps = float((err / ulp).max())
-        check(ulps <= 1.0, f"axpy n={n} off by {ulps} ulp")
-        if n < (1 << 28):
-            db = d.to(torch.bfloat16)
-            ub = float((fedagg.fedagg_axpy(x, db, eta)
-                        - fedagg.axpy_plain(x, db, eta)).abs().max())
-            check(ub == 0.0, f"axpy bf16 n={n} max abs err {ub}")
-        eta_f = float(eta)
-        k = timings(lambda: fedagg.fedagg_axpy(x, d, eta), reps)
-        plain = timings(lambda: fedagg.axpy_plain(x, d, eta), reps)
-        lib = timings(lambda: torch.add(x, d, alpha=eta_f), reps)
-        bound = max(nbytes / HBM_BYTES_PER_S, 2 * n / F32_FLOPS_PER_S) * 1e3
-        rot = (rotated_ms(fedagg.fedagg_axpy,
-                          lambda: (*mk()[:2], eta), 12 * n)
-               if n < (1 << 28) else k["device"])
-        row = {"phase": "kernel", "name": "fedagg_axpy", "size": label,
-               "n": n, "max_abs_err": float(err.max()), "max_ulp": ulps,
-               "ms": k["device"], "ms_rotated": rot,
-               "plain_ms": plain["device"],
-               "bound_ms": bound, "bound_by": "bytes",
-               "gb_per_s": nbytes / k["device"] / 1e6,
-               "gb_per_s_rotated": nbytes / rot / 1e6,
-               "library_ms": lib["device"], "call_ms": k["call"],
-               "plain_call_ms": plain["call"],
-               "library_call_ms": lib["call"]}
-        emit(row)
+        big = n >= (1 << 28)
+        row = axpy_row(torch, fedagg, label, x, d, eta,
+                       None if big else lambda: (*mk()[:2], eta), reps)
         if n == SIZES[0][1]:
             main["fedagg_axpy"] = row
-        del x, xs, d, out, ref, err, ulp
+        del x, xs, d
         torch.cuda.empty_cache()
+    x = torch.randn(AXPY_BIG, device=dev, generator=g)
+    d = 0.05 * torch.randn(AXPY_BIG, device=dev, generator=g)
+    axpy_row(torch, fedagg, "2^26", x, d, eta, None, 5)
+    del x, d
+    torch.cuda.empty_cache()
     return main
+
+
+def axpy_row(torch, fedagg, label, x, d, eta, make, reps) -> dict:
+    """fedagg_axpy against its plain version (to the ulp; a bf16 delta to
+    the bit below 2^28) and against ``torch.add`` in :func:`turns`; the
+    rotated time through ``make`` where the inputs would fit in L2, else
+    the resident one. Emits and returns the ``kernel`` row."""
+    n = x.shape[0]
+    nbytes = 12 * n
+    out = fedagg.fedagg_axpy(x, d, eta)
+    ref = fedagg.axpy_plain(x, d, eta)
+    ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))
+                          ) - ref.abs()
+    err = (out - ref).abs()
+    ulps = float((err / ulp).max())
+    check(ulps <= 1.0, f"axpy n={n} off by {ulps} ulp")
+    if n < (1 << 28):
+        db = d.to(torch.bfloat16)
+        ub = float((fedagg.fedagg_axpy(x, db, eta)
+                    - fedagg.axpy_plain(x, db, eta)).abs().max())
+        check(ub == 0.0, f"axpy bf16 n={n} max abs err {ub}")
+    eta_f = float(eta)
+    k, lib = turns(lambda: fedagg.fedagg_axpy(x, d, eta),
+                   lambda: torch.add(x, d, alpha=eta_f), reps)
+    plain = timings(lambda: fedagg.axpy_plain(x, d, eta), reps)
+    bound = max(nbytes / HBM_BYTES_PER_S, 2 * n / F32_FLOPS_PER_S) * 1e3
+    rot = (rotated_ms(fedagg.fedagg_axpy, make, 12 * n)
+           if make is not None else k["device"])
+    row = {"phase": "kernel", "name": "fedagg_axpy", "size": label,
+           "n": n, "max_abs_err": float(err.max()), "max_ulp": ulps,
+           "ms": k["device"], "ms_rotated": rot,
+           "plain_ms": plain["device"],
+           "bound_ms": bound, "bound_by": "bytes",
+           "gb_per_s": nbytes / k["device"] / 1e6,
+           "gb_per_s_rotated": nbytes / rot / 1e6,
+           "library_ms": lib["device"], "library_ratio": k["ratio"],
+           "library_spread": lib["spread"], "turns": TURN_PAIRS,
+           "call_ms": k["call"], "plain_call_ms": plain["call"],
+           "library_call_ms": lib["call"]}
+    emit(row)
+    return row
 
 
 def phase_q_kernels(torch, fedagg, compression) -> dict:

@@ -9,12 +9,13 @@ once, so a process that needs several libraries waits for the slowest
 build only.
 
 Nothing here runs at import time: the CPU tests import every module of the
-package on a machine with no ``nvcc``. The checks and the stream lookup that
-every kernel wrapper makes before a launch are here too.
+package on a machine with no ``nvcc``. The checks, the stream lookup and the
+SM count that the kernel wrappers use before a launch are here too.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -129,6 +130,13 @@ def check_tensor(name: str, t: torch.Tensor, dtypes, shape,
         raise ValueError(f"{name} must be contiguous")
     if t.device.type == "cuda" and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device``, read once: launch shapes that fill
+    the card depend on it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

@@ -10,12 +10,23 @@
 // delta and writes the result), 10 with a bf16 delta and about 9 with an int8
 // one (1 byte of q plus one f32 scale per 1024 elements), against no more
 // than five flops per element. The fused sweep is the norms sweep that also
-// writes the AXPY: 16 bytes per f32 element, one pass instead of two (24). The design therefore only has to stream:
-// 16-byte loads of x_t per thread, the delta through its loader
-// (fedagg_common.cuh), neighbouring threads on neighbouring addresses, a
-// grid-stride loop over a fixed number of blocks, and nothing staged in
-// shared memory. An int8 delta is dequantized in registers, so its f32 form
-// never exists in device memory.
+// writes the AXPY: 16 bytes per f32 element, one pass instead of two (24).
+// The design therefore only has to stream: 16-byte loads of x_t per thread,
+// the delta through its loader (fedagg_common.cuh), neighbouring threads on
+// neighbouring addresses, and nothing staged in shared memory. An int8 delta
+// is dequantized in registers, so its f32 form never exists in device memory.
+//
+// Launch shapes. The norms sweeps are grid-stride loops over grid_for(n)
+// blocks; that grid fixes the order of their partial sums, and with it their
+// bits. The AXPY is elementwise, so its bits do not depend on its launch
+// shape, and it takes its own: one block of 256 threads per 1,024
+// elements, one float4 per thread and one pass, so that the block
+// scheduler, not a fixed grid, spreads the work over the SMs (a grid_for
+// grid of at most 1,024 blocks leaves 32 of 132 SMs a block short at 2^28).
+// A persistent grid of eight blocks per SM and four float4 a thread were
+// measured and not kept (PERF.md).
+// At 2^28 the bound is 0.96 ms (12 bytes per element at 3.35 TB/s); at the
+// paper's lengths (65,536 to 262,144) the call is set by launch latency.
 //
 // Determinism: the norms reduction has no float atomics. Stage 1 writes one
 // (2,) partial per block; stage 2 is one block that folds the partials in a
@@ -82,16 +93,17 @@ norms_final(const float* __restrict__ partial, int nblocks,
   }
 }
 
-// out = x_t + eta * d, with eta read on the device.
+// out = x_t + eta * d, with eta read on the device: one pass, thread t of
+// block b on float4 group b * kThreads + t.
 template <typename L>
 __global__ void __launch_bounds__(kThreads)
 axpy(const float* __restrict__ xt, L d, const float* __restrict__ eta,
      float* __restrict__ out, int64_t n4) {
-  const float e = __ldg(eta);
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += stride)
-    reinterpret_cast<float4*>(out)[i] = axpy4(load_f32(xt, i), e, d(i));
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n4) {
+    const float4 a = load_f32(xt, i), c = d(i);
+    reinterpret_cast<float4*>(out)[i] = axpy4(a, __ldg(eta), c);
+  }
 }
 
 // The norms (eta and axpy_out null) or, with both given, the fused sweep.
@@ -111,11 +123,13 @@ int launch_norms(const float* xt, const float* xs, L d, float* partial,
   return (int)cudaGetLastError();
 }
 
+// The AXPY: one block per kThreads float4 groups.
 template <typename L>
 int launch_axpy(const float* xt, L d, const float* eta, float* out, int64_t n,
                 cudaStream_t stream) {
   const int64_t n4 = n / 4;
-  axpy<L><<<grid_for(n4), kThreads, 0, stream>>>(xt, d, eta, out, n4);
+  const int64_t blocks = (n4 + kThreads - 1) / kThreads;
+  axpy<L><<<(unsigned)blocks, kThreads, 0, stream>>>(xt, d, eta, out, n4);
   return (int)cudaGetLastError();
 }
 

@@ -298,11 +298,13 @@ def fedagg_axpy(x_t: torch.Tensor, delta: torch.Tensor,
 
     Replaces the JAX package's ``kernels/fedagg/fedagg.py::fedagg_axpy``
     (``_axpy_kernel``). Bound by device memory: it reads x_t and delta and
-    writes the result, 12 bytes per element, for 2 flops. The kernel
-    streams 16-byte loads and stores in a grid-stride loop; the multiply
-    and the add round separately, as the plain version does. It never
-    works in place: the ring GMIS keeps every past flat vector and the
-    clients hold views of the current one.
+    writes the result, 12 bytes per element, for 2 flops (0.96 ms at 2^28
+    and 3.35 TB/s). Each kernel thread reads one float4 of x_t and of
+    delta and writes one, in a single pass with no loop, over as many
+    blocks of 256 threads as the input needs, so the block scheduler spreads
+    them over the SMs. The multiply and the add round separately, as
+    the plain version does. It never works in place: the ring GMIS keeps
+    every past flat vector and the clients hold views of the current one.
     """
     _check_inputs(x_t, [("delta", delta, _DELTA_DTYPES)])
     _check_eta(eta, (), x_t)
@@ -392,9 +394,10 @@ def fedagg_axpy_q(x_t: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
 
     Replaces the JAX package's ``kernels/fedagg/fedagg.py::fedagg_axpy_q``
     (``_axpy_q_kernel``). Bound by device memory: about 9 bytes per element.
-    It is the :func:`fedagg_axpy` kernel with the int8 loader; the
-    dequantizing multiply, the multiply by eta and the add each round on
-    their own, as the plain version does, so the two agree to the bit.
+    It is the :func:`fedagg_axpy` kernel, launch shape included, with the
+    int8 loader; the dequantizing multiply, the multiply by eta and the add
+    each round on their own, as the plain version does, so the two agree to
+    the bit.
     """
     n = x_t.shape[0] if isinstance(x_t, torch.Tensor) and x_t.dim() else 0
     _check_inputs(x_t, [("q", q, (torch.int8,)),

@@ -7,7 +7,8 @@ kernel (``csrc/swa_attn.cu``, built by ``nvcc`` for ``sm_90a`` at first use)
 or raises; on a CPU tensor it runs :func:`swa_decode_plain`. Nothing falls
 back from one to the other. ``swa_decode_attention.launches`` goes up by one
 per call that launches the kernel (two CUDA launches: the pieces, then their
-merge).
+merge). :func:`piece_slots` is the kernel's launch shape, computed here so
+that the CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -50,26 +51,52 @@ def swa_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/swa_attn.cu``."""
+    """Build (at first use) and bind ``csrc/swa_attn.cu``, and let its
+    partial kernels take their largest piece of shared memory."""
     lib = build.load(SOURCE)
     for name in ("swa_decode_f32", "swa_decode_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _F,
-                       _F, _VP, _VP, _VP]
+        fn.argtypes = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
+                       _F, _F, _VP, _VP, _VP]
         fn.restype = _INT
-    lib.swa_scratch_floats.argtypes = [_INT, _INT, _INT, _INT]
+    lib.swa_scratch_floats.argtypes = [_INT, _INT, _INT, _INT, _INT]
     lib.swa_scratch_floats.restype = ctypes.c_int64
-    lib.swa_max_rep.restype = lib.swa_max_d.restype = _INT
+    for name in ("swa_init", "swa_max_rep", "swa_max_d", "swa_min_split",
+                 "swa_max_split"):
+        getattr(lib, name).restype = _INT
     lib.swa_error_string.argtypes = [_INT]
     lib.swa_error_string.restype = ctypes.c_char_p
-    if (lib.swa_max_rep(), lib.swa_max_d()) != (MAX_REP, MAX_D):
-        raise RuntimeError("swa_attn.cu and MAX_REP / MAX_D disagree")
+    if ((lib.swa_max_rep(), lib.swa_max_d(), lib.swa_min_split(),
+         lib.swa_max_split()) != (MAX_REP, MAX_D, MIN_SPLIT, MAX_SPLIT)):
+        raise RuntimeError("swa_attn.cu and the limits of swa_attn.py "
+                           "disagree")
+    err = lib.swa_init()
+    if err:
+        raise RuntimeError("swa_init failed: "
+                           f"{lib.swa_error_string(err).decode()}")
     return lib
 
 
 #: what the kernel takes: at most 16 query heads per kv head, a head dim of
 #: at most 256 that is a multiple of 4 (``kMaxRep``, ``kMaxD`` in the source)
 MAX_REP, MAX_D = 16, 256
+#: cache slots per block: a power of two from ``kMinSplit`` to ``kMaxSplit``
+MIN_SPLIT, MAX_SPLIT = 8, 64
+
+
+def piece_slots(s: int, groups: int, sms: int) -> int:
+    """Cache slots per block for a cache of ``s`` slots, ``groups`` = B * KV
+    (b, kv head) pairs and a card of ``sms`` SMs: the smallest power of two
+    from ``MIN_SPLIT`` to ``MAX_SPLIT`` that cuts each pair's cache into
+    no more pieces than it takes to give every SM a block, so that one wave
+    of blocks asks for the whole cache at once. 64 at S = 2048 with four
+    pairs on 132 SMs (128 blocks), 8 at S = 48 (24 blocks)."""
+    want = -(-sms // max(groups, 1))       # pieces per pair
+    per = -(-s // want)                    # slots per piece
+    split = MIN_SPLIT
+    while split < per and split < MAX_SPLIT:
+        split *= 2
+    return split
 
 
 def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -82,11 +109,21 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``kernels/swa_attn/swa_attn.py::swa_decode_attention``
     (``_swa_decode_kernel``). Bound by device memory: it must read the
     valid slots of K and V once, 2 * valid * KV * D elements per sequence,
-    for 4 flops per element and query head. The kernel cuts the cache into
-    64-slot pieces, one block per (piece, b, kv head); each block reads its
-    K and V rows once for all H / KV query heads that share them, and a
-    second launch merges the pieces' softmax partials in a fixed order (no
-    atomics). S need not be a multiple of anything: the last piece is short.
+    for 4 flops per element and query head (at the RecurrentGemma-2B serve
+    shape 16.8 MB, 5.0 us at 3.35 TB/s). The kernel cuts the cache into
+    pieces of :func:`piece_slots` slots, one block per (piece, b, kv head),
+    enough blocks to fill the card. A block whose piece lies wholly at or
+    past ``valid_len`` exits before it copies anything; the others request
+    every byte they use (the queries and the piece's valid K and V rows)
+    into shared memory with ``cp.async`` before any arithmetic, then score
+    their slots for all H / KV query heads that share them as register
+    tiles of 4 slots x 4 heads, take the softmax with 16 lanes per head,
+    and sum P.V with one thread per (columns, four heads). A second launch,
+    started early as a programmatic dependent, merges the live pieces'
+    softmax partials in a fixed order (no atomics, the same bits on every
+    call). S need not be a multiple of anything: the last piece is short.
+    bf16 rows of a multiple of 16 bytes are copied 16 bytes at a time,
+    others (D % 8 == 4) 8 at a time.
     """
     if not isinstance(q, torch.Tensor) or q.dim() != 3:
         raise ValueError("q must be a (B, H, D) tensor")
@@ -106,13 +143,15 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"dim <= {MAX_D} that is a multiple of 4; got "
                          f"{h // kv} and {d}")
     lib = load_library()
-    scratch = torch.empty(lib.swa_scratch_floats(b, h, s, d),
+    split = piece_slots(s, b * kv, build.sm_count(dev))
+    scratch = torch.empty(lib.swa_scratch_floats(b, h, s, d, split),
                           dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     fn = (lib.swa_decode_f32 if q.dtype == torch.float32
           else lib.swa_decode_bf16)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             valid_len.data_ptr(), b, h, s, kv, d, d ** -0.5, float(softcap),
+             valid_len.data_ptr(), b, h, s, kv, d, split, d ** -0.5,
+             float(softcap),
              scratch.data_ptr(), out.data_ptr(), build.stream(dev))
     if err:
         raise RuntimeError("swa_decode_attention launch failed: "

@@ -8,8 +8,8 @@ the file imports no JAX, so it runs on a machine that has only PyTorch:
 Tolerances. rglru_scan: atol 1e-5 + rtol 1e-5 against the plain loop (the
 carry across chunks is summed in another order, and the card's expf may
 differ from the CPU's in the last bit). swa_decode_attention: atol 1e-5
-with f32 inputs (a softmax merged from 64-slot pieces), and 8e-3 with bf16
-(the output rounds to bf16 once: half an ulp of values below 2).
+with f32 inputs (a softmax merged from pieces of 8 to 64 slots), and 8e-3
+with bf16 (the output rounds to bf16 once: half an ulp of values below 2).
 ssd_scan: 1e-4 of the largest |y| (and of the largest |state|) against the
 plain version, whose products cuBLAS sums in another order over up to
 L * N = 32,768 terms. Model logits on the card against the CPU: rtol/atol
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.kernels import build
 from repro_torch.kernels.rglru import rglru
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd
@@ -82,10 +83,19 @@ def test_rglru_bf16():
                                    (4, 48, 10, 1, 256, 0.0),
                                    (2, 256, 8, 2, 64, 30.0),
                                    (2, 100, 8, 8, 80, 0.0),
-                                   (1, 1, 16, 1, 4, 0.0)])
+                                   (1, 1, 16, 1, 4, 0.0),
+                                   (2, 5, 16, 1, 128, 0.0),
+                                   (3, 300, 16, 1, 256, 0.0),
+                                   (2, 130, 4, 1, 68, 5.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_swa_matches_plain(shape, dtype):
+    """The serve shapes (2048 and 48 slots), a GQA map with a softcap, D of
+    4, 64, 68, 80, 128 and 256, H / KV up to 16, a cache shorter than one
+    piece and one that no piece divides; valid lengths of S, 0, 1, exactly
+    one piece, one past a piece and a ragged set. In bf16, D = 4 and 68
+    take the 8-byte copies (rows not a multiple of 16 bytes), the others
+    the 16-byte ones."""
     b, s, h, kv, d, cap = shape
     g = gen(s)
     q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
@@ -93,10 +103,12 @@ def test_swa_matches_plain(shape, dtype):
     v = torch.randn(b, s, kv, d, device="cuda", generator=g).to(dtype)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     swa_attn.swa_decode_attention.launches = 0
-    lens = [torch.full((b,), s, dtype=torch.int32, device="cuda"),
+    piece = swa_attn.piece_slots(s, b * kv,
+                                 build.sm_count(torch.device("cuda:0")))
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device="cuda")
+    lens = [full(s), full(0), full(1), full(piece), full(piece + 1),
             torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
-            * max(1, s // (b + 1)),
-            torch.zeros(b, dtype=torch.int32, device="cuda")]
+            * max(1, s // (b + 1))]
     for vl in lens:
         out = swa_attn.swa_decode_attention(q, k, v, vl, cap)
         ref = swa_attn.swa_decode_plain(q, k, v, vl, cap)

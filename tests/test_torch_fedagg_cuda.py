@@ -157,6 +157,28 @@ def test_int8_kernels_match_plain_versions(n):
         2, 1)
 
 
+@requires_cuda
+@pytest.mark.parametrize("n", [BLOCK, 16 * BLOCK, 13 * BLOCK],
+                         ids=["65536", "2^20", "851968"])
+def test_axpys_equal_plain(n):
+    """fedagg_axpy (f32 and bf16 deltas) and fedagg_axpy_q equal their plain
+    versions to the bit at 65,536, 2^20 and 851,968 elements (832 blocks of
+    256 threads: not a multiple of 132 SMs)."""
+    fedagg.reset_launches()
+    x, _, d = inputs(n, torch.float32, seed=n)
+    q, s = quantized(n, seed=n + 1)
+    eta = torch.tensor(0.37, device="cuda")
+    assert torch.equal(fedagg.fedagg_axpy(x, d, eta),
+                       fedagg.axpy_plain(x, d, eta))
+    db = d.bfloat16()
+    assert torch.equal(fedagg.fedagg_axpy(x, db, eta),
+                       fedagg.axpy_plain(x, db, eta))
+    assert torch.equal(fedagg.fedagg_axpy_q(x, q, s, eta),
+                       fedagg.axpy_q_plain(x, q, s, eta))
+    assert (fedagg.fedagg_axpy.launches, fedagg.fedagg_axpy_q.launches) == (
+        2, 1)
+
+
 def batched_inputs(b, n, delta_dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(n, device="cuda", generator=g)

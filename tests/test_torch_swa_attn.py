@@ -150,3 +150,24 @@ def test_wrapper_rejects(case):
         v = v[:, :-1]
     with pytest.raises((TypeError, ValueError)):
         swa_attn.swa_decode_attention(q, k, v, vl)
+
+
+@pytest.mark.parametrize("s,groups,sms,split", [
+    (2048, 4, 132, 64),     # the serve shape: 32 pieces x 4 = 128 blocks
+    (48, 4, 132, 8),        # the short serve run: 6 pieces x 4 = 24 blocks
+    (256, 4, 132, 8),       # (2, 256, 8, 2, 64): 32 x 4 = 128 blocks
+    (300, 3, 132, 8),
+    (1, 1, 132, 8),         # never below MIN_SPLIT
+    (1 << 16, 1, 132, 64),  # never above MAX_SPLIT
+    (2048, 1, 132, 16),     # one pair: 128 pieces
+    (2048, 4, 16, 64)])
+def test_piece_slots(s, groups, sms, split):
+    """The kernel's launch shape: a power of two from MIN_SPLIT to MAX_SPLIT
+    slots per piece, the smallest that needs no more pieces than it takes
+    to give every SM a block."""
+    got = swa_attn.piece_slots(s, groups, sms)
+    assert got == split
+    assert swa_attn.MIN_SPLIT <= got <= swa_attn.MAX_SPLIT
+    assert got & (got - 1) == 0
+    want = -(-sms // groups)
+    assert got == swa_attn.MAX_SPLIT or -(-s // got) <= want
