@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--previous DIR]
 
 It builds the port's CUDA kernels from the sources in the checkout (five
 files, one ``nvcc`` each, started together), holds each kernel against its
@@ -26,6 +26,12 @@ them, the last line is ``{"ok": true, "device": {...}}``, and every other
 line is one JSON object. Any failed check ends the script with a non-zero
 exit before the last line. It imports nothing of JAX and nothing of the
 JAX package.
+
+``--previous DIR`` also times the SSD and RG-LRU scans in turns with the
+designs they replaced, built from ``DIR/ssd.cu`` and ``DIR/rglru.cu`` as
+commit 2b85a6a holds them (``git show 2b85a6a:src/repro_torch/kernels/ssd/
+csrc/ssd.cu > DIR/ssd.cu``, and likewise for ``rglru/csrc/rglru.cu``; put
+DIR under the git-ignored ``build/``).
 """
 from __future__ import annotations
 
@@ -135,6 +141,8 @@ SSD_SHAPES = [(4, 2048, 64, 64, 1, 128, 256, False),
 #: the largest |y| (and |state|): the products sum up to L * N = 32,768
 #: terms in other orders
 SSD_TOL = 1e-4
+#: turns of each scan and the design it replaced under ``--previous``
+PREVIOUS_TURNS = 5
 #: the serve runs (batch, prompt, new tokens) at full width and depth:
 #: recurrentgemma-2b's first wraps the 2048-slot ring, its second leaves
 #: slots masked (S = 48); mamba2-1.3b's first scans eight 256-step chunks,
@@ -645,18 +653,22 @@ def phase_batched_kernels(torch, fedagg, compression) -> None:
             emit(row)
 
 
-def rglru_row(torch, rglru, b: int, s: int, w: int, seed: int = 3) -> dict:
-    """rglru_scan at (B, S, W) from a starting state, against its plain
-    version, timed. log a_t in [-0.8, 0], the range of the model's gates
-    (8 r log sigmoid(Lambda), a in [0.9, 0.999]). Work: log_at and xi read,
-    h written, h0 read and the last step written; 9 flops per element."""
-    dev = torch.device("cuda:0")
-    g = torch.Generator(device=dev).manual_seed(seed)
+def rglru_inputs(torch, g, b: int, s: int, w: int):
+    """(log_at, xi, h0) for rglru_scan at (B, S, W) on the card, drawn from
+    the generator ``g``: log a_t in [-0.8, 0], the range of the model's
+    gates (8 r log sigmoid(Lambda), a in [0.9, 0.999])."""
+    dev = g.device
+    return (-0.8 * torch.rand(b, s, w, device=dev, generator=g),
+            torch.randn(b, s, w, device=dev, generator=g),
+            torch.randn(b, w, device=dev, generator=g))
 
-    def make():
-        return (-0.8 * torch.rand(b, s, w, device=dev, generator=g),
-                torch.randn(b, s, w, device=dev, generator=g),
-                torch.randn(b, w, device=dev, generator=g))
+
+def rglru_row(torch, rglru, b: int, s: int, w: int, seed: int = 3) -> dict:
+    """rglru_scan at (B, S, W) from a starting state (``rglru_inputs``),
+    against its plain version, timed. Work: log_at and xi read,
+    h written, h0 read and the last step written; 9 flops per element."""
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    make = lambda: rglru_inputs(torch, g, b, s, w)
     la, xi, h0 = make()
     out, last = rglru.rglru_scan(la, xi, h0)
     ref, rlast = rglru.rglru_scan_plain(la, xi, h0)
@@ -733,13 +745,22 @@ def swa_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
 
 def phase_arch_kernels(torch, rglru, swa_attn) -> dict:
     """The serving slice's two kernels at ``RGLRU_SHAPES`` and
-    ``SWA_SHAPES``; returns the rows at the serve shapes (the first of
-    each)."""
+    ``SWA_SHAPES``, and the RG-LRU kernel's pass at the serve shape under
+    torch.profiler (device ms over 5 calls, beside the kernel row's bound);
+    returns the rows at the serve shapes (the first of each)."""
     main = {}
     for shape in RGLRU_SHAPES:
         row = rglru_row(torch, rglru, *shape)
         emit(row)
         main.setdefault("rglru_scan", row)
+    shape = RGLRU_SHAPES[0]
+    la, xi, h0 = rglru_inputs(
+        torch, torch.Generator(device="cuda:0").manual_seed(8), *shape)
+    emit({"phase": "kernel_passes", "name": "rglru_scan", "shape": list(shape),
+          "device_ms": pass_ms(torch, lambda: rglru.rglru_scan(la, xi, h0),
+                               ("scan_stream",)),
+          "bound_ms": main["rglru_scan"]["bound_ms"]})
+    del la, xi, h0
     for shape in SWA_SHAPES:
         row = swa_row(torch, swa_attn, *shape)
         emit(row)
@@ -802,17 +823,24 @@ def phase_fused(torch, fedagg) -> dict:
     return rows[FUSED_SIZES[0]]
 
 
-def ssd_work(bs, s, h, p, g, n, chunk, with_h0):
-    """(bytes, flops) the SSD scan must move and do: x, dt, b, c, a (and
-    h0) read once, y and the final state written; per row and chunk of L,
-    C B^T and the weighted W X over the L (L + 1) / 2 causal pairs
-    (2 (N + P) flops each), the chunk's state and the state's term
-    (2 L P N each)."""
-    L = min(chunk, s)
-    nbytes = 4 * (2 * bs * s * h * p + bs * s * h + 2 * bs * s * g * n + h
-                  + bs * h * p * n * (2 if with_h0 else 1))
-    flops = bs * h * (s // L) * (4 * L * p * n + L * (L + 1) * (n + p))
-    return nbytes, flops
+def pass_ms(torch, fn, names, calls: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel in ``names`` that ``fn``
+    launches, from torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"::(\w+)(<[^>]*>)?\(", e.key)
+        if m and m.group(1) in names:
+            out[m.group(1)] = getattr(e, "device_time_total",
+                                      getattr(e, "cuda_time_total", 0.0)
+                                      ) / (calls * 1e3)
+    return out
 
 
 def ssd_row(torch, ssd_ops, SSM, bs, s, h, p, g, n, chunk, with_h0,
@@ -849,7 +877,7 @@ def ssd_row(torch, ssd_ops, SSM, bs, s, h, p, g, n, chunk, with_h0,
     check(repeat, f"ssd_scan {tag} not bitwise reproducible")
     err = float((y - ry).abs().max())
     del y2, st2, my, mst
-    nbytes, flops = ssd_work(bs, s, h, p, g, n, chunk, with_h0)
+    nbytes, flops = ssd_ops.ssd.ssd_work(bs, s, h, p, g, n, chunk, with_h0)
     big = nbytes > ROTATE_BYTES // 2
     fn = lambda *args: ssd_ops.ssd_chunked(*args[:5], chunk, args[5])
     k = timings(lambda: fn(x, dt, a, b, c, h0), 5 if big else 20)
@@ -872,9 +900,8 @@ def ssd_row(torch, ssd_ops, SSM, bs, s, h, p, g, n, chunk, with_h0,
 
 def phase_ssd_kernels(torch, ssd_ops, SSM) -> dict:
     """ssd_scan at every shape of ``SSD_SHAPES``, then the first shape's
-    three passes under torch.profiler (device ms each, over 5 calls);
+    four passes under torch.profiler (device ms each, over 5 calls);
     returns the row at the first (the serve prefill of 2048)."""
-    from torch.profiler import ProfilerActivity, profile
     rows = [ssd_row(torch, ssd_ops, SSM, *shape) for shape in SSD_SHAPES]
     for row in rows:
         emit(row)
@@ -885,24 +912,113 @@ def phase_ssd_kernels(torch, ssd_ops, SSM) -> dict:
             for shape in ((bs, s, h, p), (bs, s, h), (h,), (bs, s, g, n),
                           (bs, s, g, n))]
     args[1], args[2] = args[1].abs(), -args[2].abs()
-    ssd_ops.ssd_chunked(*args, chunk)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            ssd_ops.ssd_chunked(*args, chunk)
-        torch.cuda.synchronize()
-    passes = {}
-    for e in prof.key_averages():
-        for name in ("chunk_pass", "fold_pass", "output_pass"):
-            if name in e.key:
-                passes[name] = getattr(e, "device_time_total",
-                                       getattr(e, "cuda_time_total", 0.0)
-                                       ) / 5e3
+    passes = pass_ms(torch, lambda: ssd_ops.ssd_chunked(*args, chunk),
+                     ("cb_pass", "chunk_pass", "fold_pass", "output_pass"))
     emit({"phase": "kernel_passes", "name": "ssd_scan",
           "shape": [bs, s, h, p, g, n, chunk], "device_ms": passes})
     del args
     torch.cuda.empty_cache()
     return rows[0]
+
+
+def bind_previous(build, prev: Path):
+    """The replaced designs of ``--previous``, ``prev / "ssd.cu"`` and
+    ``prev / "rglru.cu"``, built and bound with ctypes: (ssd library, rglru
+    library). Their C interfaces are those of the kernels they preceded, but
+    for the scratch sizes."""
+    import ctypes
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    build.build_all([prev / "ssd.cu", prev / "rglru.cu"])
+    ssd_lib = build.load(prev / "ssd.cu")
+    ssd_lib.ssd_scan_f32.argtypes = [vp] * 6 + [i] * 7 + [vp] * 4
+    ssd_lib.ssd_scratch_floats.argtypes = [i] * 6
+    ssd_lib.ssd_scratch_floats.restype = ctypes.c_int64
+    check(ssd_lib.ssd_init() == 0, "the previous ssd_scan did not load")
+    rg_lib = build.load(prev / "rglru.cu")
+    rg_lib.rglru_scan_f32.argtypes = [vp, vp, vp, i, i, i, i, vp, vp, vp, vp]
+    rg_lib.rglru_scratch_floats.argtypes = [i] * 4
+    rg_lib.rglru_scratch_floats.restype = ctypes.c_int64
+    return ssd_lib, rg_lib
+
+
+def phase_previous(torch, build, ssd, rglru, prev: Path, rows: dict) -> None:
+    """The two scans against the designs they replaced (``bind_previous``)
+    at the serve shapes, on the same inputs: ``PREVIOUS_TURNS`` turns of
+    the two, alternating which goes first (``turns``), and the outputs
+    compared. Neither time may come out below the bound of the kernel's
+    row in ``rows``. Each call launches on the current stream, which the
+    CUDA graphs of ``device_ms`` replace while they capture."""
+    import torch.nn.functional as F
+    ssd_lib, rg_lib = bind_previous(build, prev)
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+
+    bs, s, h, p, g, n, chunk, _ = SSD_SHAPES[0]
+    x, dt, a = rnd(bs, s, h, p), F.softplus(rnd(bs, s, h)), -torch.exp(
+        0.3 * rnd(h))
+    b, c = 0.3 * rnd(bs, s, g, n), 0.3 * rnd(bs, s, g, n)
+    a_rows = a.repeat(bs)
+
+    def ssd_old():
+        scratch = torch.empty(
+            ssd_lib.ssd_scratch_floats(bs, s, h, p, n, chunk), device=dev)
+        y_old = torch.empty_like(x)
+        st_old = torch.empty(bs, h, p, n, device=dev)
+        err = ssd_lib.ssd_scan_f32(
+            x.data_ptr(), dt.data_ptr(), a_rows.data_ptr(), b.data_ptr(),
+            c.data_ptr(), None, bs, s, h, g, p, n, chunk, scratch.data_ptr(),
+            y_old.data_ptr(), st_old.data_ptr(), build.stream(dev))
+        check(err == 0, f"the previous ssd_scan failed: {err}")
+        return y_old, st_old
+    ssd_new = lambda: ssd.launch(x, dt, a_rows, b, c, chunk=chunk)
+    (y, st), (y_old, st_old) = ssd_new(), ssd_old()
+    scaled = lambda u, v: float((u - v).abs().max() / v.abs().max())
+    diff = max(scaled(y, y_old), scaled(st, st_old))
+    check(diff <= SSD_TOL, f"ssd_scan against its previous design: {diff}")
+    del y, st, y_old, st_old
+    k, prev_t = turns(ssd_new, ssd_old, 5, PREVIOUS_TURNS)
+    check(min(k["device"], prev_t["device"]) >= rows["ssd_scan"]["bound_ms"],
+          f"ssd_scan timed below its bound: {k}, previous {prev_t}")
+    emit({"phase": "previous_design", "name": "ssd_scan",
+          "shape": [bs, s, h, p, g, n, chunk], "ms": k["device"],
+          "previous_ms": prev_t["device"], "ratio": k["ratio"],
+          "previous_spread": prev_t["spread"], "turns": PREVIOUS_TURNS,
+          "max_scaled_diff": diff})
+    del x, dt, b, c
+
+    bs, s, w = RGLRU_SHAPES[0]
+    la, xi, h0 = rglru_inputs(torch, gen, bs, s, w)
+
+    def rg_old():
+        scratch = torch.empty(rg_lib.rglru_scratch_floats(bs, s, w, 64),
+                              device=dev)
+        out_old = torch.empty_like(xi)
+        last_old = torch.empty(bs, w, device=dev)
+        err = rg_lib.rglru_scan_f32(
+            la.data_ptr(), xi.data_ptr(), h0.data_ptr(), bs, s, w, 64,
+            scratch.data_ptr(), out_old.data_ptr(), last_old.data_ptr(),
+            build.stream(dev))
+        check(err == 0, f"the previous rglru_scan failed: {err}")
+        return out_old, last_old
+    rg_new = lambda: rglru.rglru_scan(la, xi, h0)
+    (out, last), (out_old, last_old) = rg_new(), rg_old()
+    diff = max(float((out - out_old).abs().max()),
+               float((last - last_old).abs().max()))
+    check(diff <= RGLRU_ATOL,
+          f"rglru_scan against its previous design: {diff}")
+    equal = torch.equal(out, out_old) and torch.equal(last, last_old)
+    del out, last, out_old, last_old
+    k, prev_t = turns(rg_new, rg_old, 10, PREVIOUS_TURNS)
+    check(min(k["device"], prev_t["device"]) >= rows["rglru_scan"]["bound_ms"],
+          f"rglru_scan timed below its bound: {k}, previous {prev_t}")
+    emit({"phase": "previous_design", "name": "rglru_scan",
+          "shape": [bs, s, w], "ms": k["device"],
+          "previous_ms": prev_t["device"], "ratio": k["ratio"],
+          "previous_spread": prev_t["spread"], "turns": PREVIOUS_TURNS,
+          "max_abs_diff": diff, "bitwise_equal_previous": equal})
+    del la, xi, h0
+    torch.cuda.empty_cache()
 
 
 def expected_launches(kinds, gen_len: int) -> dict:
@@ -1256,7 +1372,14 @@ def device_summary(prof, wall: float) -> dict:
                     for k, (c, us) in top]}
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
+                                 "NVIDIA GPU and check it.")
+    ap.add_argument("--previous", type=Path, default=None, metavar="DIR",
+                    help="time the SSD and RG-LRU scans in turns with "
+                         "DIR/ssd.cu and DIR/rglru.cu (commit 2b85a6a's)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1293,6 +1416,9 @@ def main() -> int:
     main_rows.update(phase_arch_kernels(torch, rglru, swa_attn))
     main_rows["fedagg_fused"] = phase_fused(torch, fedagg)
     main_rows["ssd_scan"] = phase_ssd_kernels(torch, ssd_ops, SSM)
+    if args.previous is not None:
+        phase_previous(torch, build, ssd, rglru, args.previous.resolve(),
+                       main_rows)
     launches: dict = {}
     phase_sims(torch, fedagg, launches)
     bursts = phase_paths(torch, fedagg, compression, launches)
@@ -1363,4 +1489,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

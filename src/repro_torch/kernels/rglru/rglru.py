@@ -9,8 +9,7 @@ On a CUDA tensor :func:`rglru_scan` launches its hand-written kernel
 (``csrc/rglru.cu``, built by ``nvcc`` for ``sm_90a`` at first use) or
 raises; on a CPU tensor it runs :func:`rglru_scan_plain`. Nothing falls back
 from one to the other. ``rglru_scan.launches`` goes up by one per call that
-launches the kernel (one or two CUDA launches: the chunk summaries when there
-is more than one chunk, then the scan).
+launches the kernel (one CUDA launch).
 """
 from __future__ import annotations
 
@@ -24,8 +23,6 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).with_name("csrc") / "rglru.cu"
-#: steps per chunk of the kernel: B * W * S / CHUNK threads
-CHUNK = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 
@@ -54,11 +51,8 @@ def load_library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     for name in ("rglru_scan_f32", "rglru_scan_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
-                       _VP]
+        fn.argtypes = [_VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _VP]
         fn.restype = _INT
-    lib.rglru_scratch_floats.argtypes = [_INT, _INT, _INT, _INT]
-    lib.rglru_scratch_floats.restype = ctypes.c_int64
     lib.rglru_error_string.argtypes = [_INT]
     lib.rglru_error_string.restype = ctypes.c_char_p
     return lib
@@ -74,11 +68,11 @@ def rglru_scan(log_at: torch.Tensor, xi: torch.Tensor,
     (``_rglru_kernel``), which starts from zero; ``h0`` is the model's
     starting state (``models/rglru.py`` folds it into the first step, the
     same function). Bound by device memory: 12 bytes per f32 element read
-    and written for about 10 flops. The kernel cuts S into ``CHUNK``-step
-    pieces, one thread per (b, piece, w) so that B * W * S / CHUNK threads
-    run; a first pass writes each piece's end state and decay product, a
-    second folds the pieces before its own in order and rescans its piece
-    from that carry (no atomics, the same bits every run).
+    and written for about 10 flops. The kernel reads each input once: a
+    block streams S in order for 32 channels through a ring of ``cp.async``
+    stages in shared memory, the whole block computes each stage's gates,
+    and one thread per channel steps the recurrence in the plain version's
+    order (no scratch, no atomics, the same bits every run).
     """
     if not isinstance(xi, torch.Tensor) or xi.dim() != 3:
         raise ValueError("xi must be a (B, S, W) tensor")
@@ -91,16 +85,13 @@ def rglru_scan(log_at: torch.Tensor, xi: torch.Tensor,
     if dev.type == "cpu":
         return rglru_scan_plain(log_at, xi, h0)
     lib = load_library()
-    scratch = torch.empty(lib.rglru_scratch_floats(b, s, w, CHUNK),
-                          dtype=torch.float32, device=dev)
     out = torch.empty_like(xi)
     last = torch.empty((b, w), dtype=torch.float32, device=dev)
     fn = (lib.rglru_scan_f32 if xi.dtype == torch.float32
           else lib.rglru_scan_bf16)
     err = fn(log_at.data_ptr(), xi.data_ptr(),
-             None if h0 is None else h0.data_ptr(), b, s, w, CHUNK,
-             scratch.data_ptr(), out.data_ptr(), last.data_ptr(),
-             build.stream(dev))
+             None if h0 is None else h0.data_ptr(), b, s, w, out.data_ptr(),
+             last.data_ptr(), build.stream(dev))
     if err:
         raise RuntimeError("rglru_scan launch failed: "
                            f"{lib.rglru_error_string(err).decode()}")

@@ -13,9 +13,10 @@ On a CUDA tensor :func:`ssd_scan` launches its hand-written kernel
 a CPU tensor it runs :func:`ssd_scan_plain`. Nothing falls back from one to
 the other. :func:`launch` is the same kernel on the model's layout, where the
 heads of a group share its B and C in place (``kernels/ssd/ops.py``).
-``ssd_scan.launches`` goes up by one per call that launches the kernel (three
-CUDA launches: the chunk pass, the fold, the output pass), through either
-entry.
+``ssd_scan.launches`` goes up by one per call that launches the kernel (four
+CUDA launches: the score tiles, the chunk pass, the fold, the output pass),
+through either entry. :func:`ssd_work` counts the bytes and operations the
+function needs, for the kernel's bound.
 """
 from __future__ import annotations
 
@@ -43,6 +44,23 @@ def chunk_of(chunk: int, s: int) -> int:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"chunk {chunk}")
     return chunk
+
+
+def ssd_work(bs: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+             with_h0: bool) -> Tuple[int, int]:
+    """(bytes, flops) the scan must move and do on the model's layout at
+    (B, S, H, P, G, N) with chunk ``min(chunk, S)``: x, dt, b, c, a (and
+    h0) read once, y and the final state written; C B^T over the
+    L (L + 1) / 2 causal pairs of each chunk once per group (2N flops each),
+    the weighted W X over them per head (2P flops each), and the chunk's
+    state and the state's term per head (2 L P N each)."""
+    L = min(chunk, s)
+    nc = s // L
+    nbytes = 4 * (2 * bs * s * h * p + bs * s * h + 2 * bs * s * g * n + h
+                  + bs * h * p * n * (2 if with_h0 else 1))
+    flops = (bs * nc * g * L * (L + 1) * n
+             + bs * h * nc * (4 * L * p * n + L * (L + 1) * p))
+    return nbytes, flops
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -86,7 +104,7 @@ def load_library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.ssd_scan_f32.argtypes = [_VP] * 6 + [_INT] * 7 + [_VP] * 4
     lib.ssd_scan_f32.restype = _INT
-    lib.ssd_scratch_floats.argtypes = [_INT] * 6
+    lib.ssd_scratch_floats.argtypes = [_INT] * 7
     lib.ssd_scratch_floats.restype = ctypes.c_int64
     for name in ("ssd_max_p", "ssd_max_n", "ssd_max_chunk", "ssd_init"):
         getattr(lib, name).argtypes = []
@@ -111,11 +129,14 @@ def launch(x: torch.Tensor, dt: torch.Tensor, a_rows: torch.Tensor,
     group h // (H // G) in place.
 
     Bound by operations (f32 outside the tensor cores): at the mamba2-1.3b
-    serve shape about 43 GFLOP of causal work against 0.29 GB that the
-    function must move. A chunk pass writes each chunk's cumsum
-    and state contribution, a fold runs the chunks in order from ``h0``,
-    and an output pass forms each 64-row query tile from the C tile, the
-    chunk's starting state and the key tiles on or below the diagonal
+    serve shape 26.07 GFLOP of causal work, C B^T counted once per group
+    (:func:`ssd_work`), against 0.29 GB that the function must move. A
+    first pass writes the causal 64 x 64 tiles of C B^T once per (batch,
+    chunk, group); a chunk pass writes each chunk's cumsum and state
+    contribution; a fold runs the chunks in order from ``h0``; and an
+    output pass forms each 64-row query tile from the C tile against the
+    chunk's starting state, then from the group's score tiles on or below
+    the diagonal turned into the head's weights against x
     (``csrc/ssd.cu``). No atomics: the same bits on every run.
     """
     if not isinstance(x, torch.Tensor) or x.dim() != 4:
@@ -144,8 +165,9 @@ def launch(x: torch.Tensor, dt: torch.Tensor, a_rows: torch.Tensor,
     build.check_tensor("c", c, _F32, (bs, s, g, n), dev)
     if h0 is not None:
         build.check_tensor("h0", h0, _F32, (bs, h, p, n), dev)
-    scratch = torch.empty(lib.ssd_scratch_floats(bs, s, h, p, n, chunk),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        lib.ssd_scratch_floats(bs, s, h, g, p, n, chunk),
+        dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     final = torch.empty((bs, h, p, n), dtype=torch.float32, device=dev)
     err = lib.ssd_scan_f32(x.data_ptr(), dt.data_ptr(), a_rows.data_ptr(),

@@ -6,10 +6,11 @@ the file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_arch_cuda.py
 
 Tolerances. rglru_scan: atol 1e-5 + rtol 1e-5 against the plain loop (the
-carry across chunks is summed in another order, and the card's expf may
-differ from the CPU's in the last bit). swa_decode_attention: atol 1e-5
-with f32 inputs (a softmax merged from pieces of 8 to 64 slots), and 8e-3
-with bf16 (the output rounds to bf16 once: half an ulp of values below 2).
+kernel steps in the same order, but fuses each step's multiply and add, and
+the card's expf may differ from the CPU's in the last bit).
+swa_decode_attention: atol 1e-5 with f32 inputs (a softmax merged from
+pieces of 8 to 64 slots), and 8e-3 with bf16 (the output rounds to bf16
+once: half an ulp of values below 2).
 ssd_scan: 1e-4 of the largest |y| (and of the largest |state|) against the
 plain version, whose products cuBLAS sums in another order over up to
 L * N = 32,768 terms. Model logits on the card against the CPU: rtol/atol
@@ -76,6 +77,39 @@ def test_rglru_bf16():
     torch.testing.assert_close(out.float(), ref.float(), rtol=8e-3,
                                atol=1e-5)
     torch.testing.assert_close(last, rlast, rtol=1e-5, atol=1e-5)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(2, 20, 64), (3, 77, 96), (2, 300, 100),
+                                   (1, 129, 10), (2, 64, 40)],
+                         ids=["under_one_stage", "ragged_s", "w_not_tile",
+                              "w_not_mult_4", "one_tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+def test_rglru_stream_edges(shape, dtype, with_h0):
+    """The one-pass stream at its edges: S shorter than one 32-step stage,
+    S not a multiple of 32 or 64, W not a multiple of the 32-channel tile,
+    rows that are not a multiple of 16 bytes (W = 10 in f32, W = 100 and 10
+    in bf16: 4-byte copies and plain loads), and one whole tile. Within
+    1e-5 (a bf16 h within 8e-3 of its value: it rounds once), bitwise
+    repeatable, and a second call right after the first on the same stream
+    gives the same bits."""
+    b, s, w = shape
+    g = gen(s * w)
+    la = -torch.rand(b, s, w, device="cuda", generator=g) * 0.3
+    xi = torch.randn(b, s, w, device="cuda", generator=g).to(dtype)
+    h0 = (torch.randn(b, w, device="cuda", generator=g) if with_h0
+          else None)
+    out, last = rglru.rglru_scan(la, xi, h0)
+    again, last2 = rglru.rglru_scan(la, xi, h0)
+    ref, rlast = rglru.rglru_scan_plain(la, xi, h0)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=1e-5)
+    torch.testing.assert_close(last, rlast, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again) and torch.equal(last, last2)
 
 
 @requires_cuda
@@ -172,6 +206,41 @@ def test_ssd_matches_plain(shape, with_h0):
                               initial_state=h0)
     assert_scaled_close(y, my)
     assert_scaled_close(st, mst)
+    y2, st2 = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, initial_state=h0)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(2, 512, 8, 16, 1, 32, 256, False),
+                                   (2, 512, 8, 16, 1, 32, 256, True),
+                                   (2, 32, 8, 16, 1, 32, 256, False),
+                                   (2, 40, 8, 16, 1, 32, 256, True),
+                                   (2, 512, 8, 16, 4, 32, 256, True),
+                                   (1, 256, 4, 16, 4, 32, 64, True),
+                                   (1, 256, 4, 16, 2, 32, 64, False),
+                                   (1, 256, 8, 16, 1, 32, 64, True),
+                                   (2, 100, 4, 16, 2, 32, 128, True),
+                                   (1, 128, 4, 6, 2, 10, 64, True)],
+                         ids=["serve", "serve_h0", "cut_32", "ragged_40",
+                              "g4", "hg1_c64", "hg2_c64", "hg8_c64",
+                              "ragged_tile", "p_n_not_mult_4"])
+def test_ssd_shared_scores(shape):
+    """The score tiles that the heads of a group share, at a small width:
+    chip_smoke.py's five SSD_SHAPES (the serve prefill from zero and from a
+    state, a chunk cut to 32, a ragged chunk of 40, G = 4), H / G of 1, 2
+    and 8 with chunks of 64, one chunk of 100 (a full and a ragged query
+    tile), and P and N that are not multiples of 4 (4-byte copies). Held
+    against the plain version and the model twin, bitwise repeatable."""
+    bs, s, h, p, g, n, chunk, with_h0 = shape
+    x, dt, a, b, c, h0 = ssd_inputs(bs, s, h, p, g, n, seed=s + 7 * h + g,
+                                    h0=with_h0)
+    y, st = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, initial_state=h0)
+    ry, rst = ssd_ops.ssd_chunked_plain(x, dt, a, b, c, chunk, h0)
+    my, mst = SSM.ssd_chunked(x, dt, a, b, c, min(chunk, s),
+                              initial_state=h0)
+    torch.cuda.synchronize()
+    for got, want in ((y, ry), (st, rst), (y, my), (st, mst)):
+        assert_scaled_close(got, want)
     y2, st2 = ssd_ops.ssd_chunked(x, dt, a, b, c, chunk, initial_state=h0)
     assert torch.equal(y, y2) and torch.equal(st, st2)
 

@@ -177,3 +177,42 @@ def test_launch_needs_cuda_tensors():
     a_rows = marrs[2].repeat(1)
     with pytest.raises(ValueError, match="CUDA"):
         ssd.launch(marrs[0], marrs[1], a_rows, marrs[3], marrs[4], chunk=32)
+
+
+def test_ssd_work_at_the_serve_shape():
+    """mamba2-1.3b's prefill of 2048 (B 4, H 64, P 64, G 1, N 128, L 256):
+    26.07 GFLOP with C B^T once per group, 0.389 ms at 67 TFLOP/s of f32,
+    above the 0.09 ms that its bytes take at 3.35 TB/s. Counted per head,
+    as the first kernel's note did, it was 43.05 GFLOP and 0.643 ms."""
+    nbytes, flops = ssd.ssd_work(4, 2048, 64, 64, 1, 128, 256, False)
+    assert round(flops / 1e9, 2) == 26.07
+    assert round(flops / 67e12 * 1e3, 3) == 0.389
+    assert nbytes / 3.35e12 < flops / 67e12
+    per_head = 4 * 64 * 8 * (4 * 256 * 64 * 128 + 256 * 257 * (128 + 64))
+    assert round(per_head / 1e9, 2) == 43.05
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 4, 8, 1, 16, 32),
+                                   (2, 96, 6, 8, 3, 16, 32),
+                                   (1, 40, 4, 4, 2, 8, 256),
+                                   (3, 64, 2, 8, 1, 4, 64)],
+                         ids=["g1", "g3", "ragged", "one_chunk"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+def test_ssd_work_counts_causal_pairs(shape, with_h0):
+    """ssd_work against a count by enumeration: each causal pair (s <= l)
+    of each chunk costs 2N flops once per (batch, chunk, group) and 2P per
+    head, each (row, chunk) 2 L P N for its state and 2 L P N for the
+    state's term; every input element is read once and every output
+    element written once, 4 bytes each."""
+    bs, s, h, p, g, n, chunk = shape
+    L = min(chunk, s)
+    pairs = sum(1 for l in range(L) for t in range(L) if t <= l)
+    flops = 0
+    for _ in range(bs * (s // L)):
+        flops += g * pairs * 2 * n
+        flops += h * (pairs * 2 * p + 2 * (2 * L * p * n))
+    elems = {"x": bs * s * h * p, "dt": bs * s * h, "a": h,
+             "b": bs * s * g * n, "c": bs * s * g * n, "y": bs * s * h * p,
+             "state": bs * h * p * n, "h0": bs * h * p * n if with_h0 else 0}
+    assert ssd.ssd_work(bs, s, h, p, g, n, chunk, with_h0) == (
+        4 * sum(elems.values()), flops)
