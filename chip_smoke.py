@@ -27,11 +27,15 @@ line is one JSON object. Any failed check ends the script with a non-zero
 exit before the last line. It imports nothing of JAX and nothing of the
 JAX package.
 
-``--previous DIR`` also times the SSD and RG-LRU scans in turns with the
-designs they replaced, built from ``DIR/ssd.cu`` and ``DIR/rglru.cu`` as
-commit 2b85a6a holds them (``git show 2b85a6a:src/repro_torch/kernels/ssd/
-csrc/ssd.cu > DIR/ssd.cu``, and likewise for ``rglru/csrc/rglru.cu``; put
-DIR under the git-ignored ``build/``).
+``--previous DIR`` also times, in turns, each kernel whose previous design
+DIR holds against that design, after the path runs: the SSD and RG-LRU
+scans from ``DIR/ssd.cu`` and ``DIR/rglru.cu`` as commit 2b85a6a holds them
+(``git show 2b85a6a:src/repro_torch/kernels/ssd/csrc/ssd.cu > DIR/ssd.cu``,
+likewise ``rglru/csrc/rglru.cu``), the single and batched norms sweeps from
+``DIR/fedagg.cu`` and ``DIR/fedagg_batched.cu`` as commit 33d513a holds
+them, with that commit's ``fedagg_common.cuh`` beside them (``git show
+33d513a:src/repro_torch/kernels/fedagg/csrc/fedagg.cu > DIR/fedagg.cu``,
+likewise the other two). Put DIR under the git-ignored ``build/``.
 """
 from __future__ import annotations
 
@@ -141,8 +145,10 @@ SSD_SHAPES = [(4, 2048, 64, 64, 1, 128, 256, False),
 #: the largest |y| (and |state|): the products sum up to L * N = 32,768
 #: terms in other orders
 SSD_TOL = 1e-4
-#: turns of each scan and the design it replaced under ``--previous``
+#: turns of each kernel and the design it replaced under ``--previous``
 PREVIOUS_TURNS = 5
+#: the single norms sweep's lengths under ``--previous``
+PREVIOUS_NORMS_SIZES = (65536, 1 << 28)
 #: the serve runs (batch, prompt, new tokens) at full width and depth:
 #: recurrentgemma-2b's first wraps the 2048-slot ring, its second leaves
 #: slots masked (S = 48); mamba2-1.3b's first scans eight 256-step chunks,
@@ -319,7 +325,7 @@ def phase_kernels(torch, fedagg) -> dict:
         xs = x + 0.01 * torch.randn(n, device=dev, generator=g)
         d = 0.05 * torch.randn(n, device=dev, generator=g)
         eta = torch.full((), 0.37, device=dev)
-        nbytes = 12 * n
+        nbytes, flops = fedagg.norms_work(n)
 
         out = fedagg.fedagg_norms(x, xs, d)
         ref = fedagg.norms_plain(x, xs, d)
@@ -339,18 +345,18 @@ def phase_kernels(torch, fedagg) -> dict:
         reps = 5 if n >= (1 << 28) else 20
         k = timings(lambda: fedagg.fedagg_norms(x, xs, d), reps)
         plain = timings(lambda: fedagg.norms_plain(x, xs, d), reps)
-        bound = max(nbytes / HBM_BYTES_PER_S, 5 * n / F32_FLOPS_PER_S) * 1e3
+        bms, by = bound_ms(nbytes, flops)
         mk = lambda: (torch.randn(n, device=dev, generator=g),
                       torch.randn(n, device=dev, generator=g),
                       torch.randn(n, device=dev, generator=g))
-        rot = (rotated_ms(fedagg.fedagg_norms, mk, 12 * n)
+        rot = (rotated_ms(fedagg.fedagg_norms, mk, nbytes)
                if n < (1 << 28) else k["device"])
         row = {"phase": "kernel", "name": "fedagg_norms", "size": label,
                "n": n, "max_abs_err": float(err.max()), "max_rel_err": rel,
                "rtol": NORMS_RTOL[n], "bitwise_repeat": repeat,
                "ms": k["device"], "ms_rotated": rot,
                "plain_ms": plain["device"],
-               "bound_ms": bound, "bound_by": "bytes",
+               "bound_ms": bms, "bound_by": by,
                "gb_per_s": nbytes / k["device"] / 1e6,
                "gb_per_s_rotated": nbytes / rot / 1e6, "library_ms": None,
                "call_ms": k["call"], "plain_call_ms": plain["call"]}
@@ -432,7 +438,7 @@ def phase_q_kernels(torch, fedagg, compression) -> dict:
                 cd.q, cd.scales
         x, xs, q, sc = make()
         eta = torch.full((), 0.37, device=dev)
-        nbytes = 9 * n + 4 * (n // fedagg.QBLOCK)
+        nbytes, flops = fedagg.norms_work(n, 1)
         reps = 5 if n >= (1 << 28) else 20
         big = n >= (1 << 28)
 
@@ -448,7 +454,7 @@ def phase_q_kernels(torch, fedagg, compression) -> dict:
         plain = timings(lambda: fedagg.norms_q_plain(x, xs, q, sc), reps)
         rot = (k["device"] if big else
                rotated_ms(fedagg.fedagg_norms_q, make, nbytes))
-        bms, by = bound_ms(nbytes, 6 * n)
+        bms, by = bound_ms(nbytes, flops)
         row = {"phase": "kernel", "name": "fedagg_norms_q", "size": label,
                "n": n, "max_abs_err": float(err.max()), "max_rel_err": rel,
                "rtol": NORMS_RTOL[n], "bitwise_repeat": repeat,
@@ -483,6 +489,24 @@ def phase_q_kernels(torch, fedagg, compression) -> dict:
     return main
 
 
+def batched_errors(got, want):
+    """Errors of batched norms ``got`` against ``want`` (both as
+    (dist0_sq, dn_sq, cross, gram)): the largest relative error of dist0_sq
+    and dn_sq, the largest error of a cross or Gram term over the product of
+    its two vectors' norms (its Cauchy-Schwarz bound), and the largest
+    absolute error."""
+    d0, dn, cross, gram = want
+    rel = max(float(((got[0] - d0).abs() / d0).max()),
+              float(((got[1] - dn).abs() / dn).max()))
+    scaled = max(
+        float(((got[2] - cross).abs() / (d0[:, None] * dn[None]).sqrt()
+               ).max()),
+        float(((got[3] - gram).abs() / (dn[:, None] * dn[None]).sqrt()
+               ).max()))
+    abs_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    return rel, scaled, abs_err
+
+
 def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
     """fedagg_norms_batched and fedagg_apply_batched at (B, n) with a
     ``dtype`` delta, each against its plain version, timed; returns the two
@@ -507,28 +531,20 @@ def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
     tag = {"B": b, "n": n, "delta": str(dtype).replace("torch.", "")}
 
     got = fedagg.fedagg_norms_batched(x, xs, d)
-    d0, dn, cross, gram = fedagg.norms_batched_plain(x, xs, d)
     rtol = BATCHED_RTOL[n]
-    rel = max(float(((got[0] - d0).abs() / d0).max()),
-              float(((got[1] - dn).abs() / dn).max()))
-    scaled = max(
-        float(((got[2] - cross).abs() / (d0[:, None] * dn[None]).sqrt()
-               ).max()),
-        float(((got[3] - gram).abs() / (dn[:, None] * dn[None]).sqrt()
-               ).max()))
-    abs_err = max(float((a - w).abs().max())
-                  for a, w in zip(got, (d0, dn, cross, gram)))
+    rel, scaled, abs_err = batched_errors(
+        got, fedagg.norms_batched_plain(x, xs, d))
     again = fedagg.fedagg_norms_batched(x, xs, d)
     repeat = all(torch.equal(a, c) for a, c in zip(got, again))
     check(rel <= rtol and scaled <= rtol,
           f"norms_batched {tag}: rel {rel}, scaled {scaled} > {rtol}")
     check(repeat, f"norms_batched {tag} not bitwise reproducible")
-    nbytes = 4 * n * (1 + b) + dbytes * b * n
+    nbytes, flops = fedagg.norms_batched_work(b, n, dbytes)
     k = timings(lambda: fedagg.fedagg_norms_batched(x, xs, d), reps)
     plain = timings(lambda: fedagg.norms_batched_plain(x, xs, d), reps)
     rot = k["device"] if big else rotated_ms(fedagg.fedagg_norms_batched,
                                              make, nbytes)
-    bms, by = bound_ms(nbytes, (3 * b * b + 4 * b) * n)
+    bms, by = bound_ms(nbytes, flops)
     norms = {"phase": "kernel", "name": "fedagg_norms_batched", **tag,
              "max_abs_err": abs_err, "max_rel_err": rel,
              "max_scaled_err": scaled, "rtol": rtol,
@@ -586,29 +602,21 @@ def batched_q_rows(torch, fedagg, compression, b: int, n: int,
     qbytes = b * n + 4 * b * (n // fedagg.QBLOCK)
 
     got = fedagg.fedagg_norms_batched_q(x, xs, qs, sc)
-    d0, dn, cross, gram = fedagg.norms_batched_q_plain(x, xs, qs, sc)
     rtol = BATCHED_RTOL[n]
-    rel = max(float(((got[0] - d0).abs() / d0).max()),
-              float(((got[1] - dn).abs() / dn).max()))
-    scaled = max(
-        float(((got[2] - cross).abs() / (d0[:, None] * dn[None]).sqrt()
-               ).max()),
-        float(((got[3] - gram).abs() / (dn[:, None] * dn[None]).sqrt()
-               ).max()))
-    abs_err = max(float((a - w).abs().max())
-                  for a, w in zip(got, (d0, dn, cross, gram)))
+    rel, scaled, abs_err = batched_errors(
+        got, fedagg.norms_batched_q_plain(x, xs, qs, sc))
     repeat = all(torch.equal(a, c) for a, c in zip(
         got, fedagg.fedagg_norms_batched_q(x, xs, qs, sc)))
     check(rel <= rtol and scaled <= rtol,
           f"norms_batched_q {tag}: rel {rel}, scaled {scaled} > {rtol}")
     check(repeat, f"norms_batched_q {tag} not bitwise reproducible")
-    nbytes = 4 * n * (1 + b) + qbytes
+    nbytes, flops = fedagg.norms_batched_work(b, n, 1)
     k = timings(lambda: fedagg.fedagg_norms_batched_q(x, xs, qs, sc), reps)
     plain = timings(lambda: fedagg.norms_batched_q_plain(x, xs, qs, sc),
                     reps)
     rot = k["device"] if big else rotated_ms(fedagg.fedagg_norms_batched_q,
                                              make, nbytes)
-    bms, by = bound_ms(nbytes, (3 * b * b + 5 * b) * n)
+    bms, by = bound_ms(nbytes, flops)
     norms = {"phase": "kernel", "name": "fedagg_norms_batched_q", **tag,
              "max_abs_err": abs_err, "max_rel_err": rel,
              "max_scaled_err": scaled, "rtol": rtol,
@@ -637,6 +645,22 @@ def batched_q_rows(torch, fedagg, compression, b: int, n: int,
     del x, xs, qs, sc, got, out
     torch.cuda.empty_cache()
     return norms, apply
+
+
+def batched_passes(torch, fedagg, b: int, n: int, bound: float) -> dict:
+    """The ``kernel_passes`` row of fedagg_norms_batched at (B, n) with f32
+    deltas: device ms per call of its split-K pass and of its fold, from
+    torch.profiler, beside the kernel row's bound."""
+    g = torch.Generator(device="cuda:0").manual_seed(11)
+    x = torch.randn(n, device="cuda:0", generator=g)
+    xs = x + 0.01 * torch.randn(b, n, device="cuda:0", generator=g)
+    d = 0.05 * torch.randn(b, n, device="cuda:0", generator=g)
+    passes = pass_ms(torch, lambda: fedagg.fedagg_norms_batched(x, xs, d),
+                     ("norms_batched_tiles", "norms_batched_fold"))
+    del x, xs, d
+    return {"phase": "kernel_passes", "name": "fedagg_norms_batched",
+            "B": b, "n": n, "delta": "float32", "device_ms": passes,
+            "bound_ms": bound}
 
 
 def phase_batched_kernels(torch, fedagg, compression) -> None:
@@ -824,8 +848,13 @@ def phase_fused(torch, fedagg) -> dict:
 
 
 def pass_ms(torch, fn, names, calls: int = 5) -> dict:
-    """Device ms per call of each CUDA kernel in ``names`` that ``fn``
-    launches, from torch.profiler over ``calls`` calls."""
+    """Device ms of each CUDA kernel in ``names``, which ``fn`` launches once
+    a call: the mean duration of its kernel events in torch.profiler's
+    trace of ``calls`` calls. The mean is over the events the trace holds: a
+    long process's trace can drop some. A kernel launched as a programmatic
+    dependent starts before the kernel it waits for ends, and its duration
+    counts that wait."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -833,14 +862,12 @@ def pass_ms(torch, fn, names, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        m = re.search(r"::(\w+)(<[^>]*>)?\(", e.key)
-        if m and m.group(1) in names:
-            out[m.group(1)] = getattr(e, "device_time_total",
-                                      getattr(e, "cuda_time_total", 0.0)
-                                      ) / (calls * 1e3)
-    return out
+    us: dict = {}
+    for e in prof.events():
+        m = re.search(r"::(\w+)(<[^>]*>)?\(", e.name)
+        if e.device_type == DeviceType.CUDA and m and m.group(1) in names:
+            us.setdefault(m.group(1), []).append(e.time_range.elapsed_us())
+    return {k: statistics.mean(v) / 1e3 for k, v in us.items()}
 
 
 def ssd_row(torch, ssd_ops, SSM, bs, s, h, p, g, n, chunk, with_h0,
@@ -921,35 +948,18 @@ def phase_ssd_kernels(torch, ssd_ops, SSM) -> dict:
     return rows[0]
 
 
-def bind_previous(build, prev: Path):
-    """The replaced designs of ``--previous``, ``prev / "ssd.cu"`` and
-    ``prev / "rglru.cu"``, built and bound with ctypes: (ssd library, rglru
-    library). Their C interfaces are those of the kernels they preceded, but
-    for the scratch sizes."""
+def previous_ssd(torch, build, mods, ssd_lib, rows, burst) -> None:
+    """ssd_scan against the design it replaced (``DIR/ssd.cu``, commit
+    2b85a6a's) at the serve shape: outputs within ``SSD_TOL``, times in
+    ``PREVIOUS_TURNS`` turns."""
     import ctypes
+    import torch.nn.functional as F
     vp, i = ctypes.c_void_p, ctypes.c_int
-    build.build_all([prev / "ssd.cu", prev / "rglru.cu"])
-    ssd_lib = build.load(prev / "ssd.cu")
+    ssd = mods["ssd"]
     ssd_lib.ssd_scan_f32.argtypes = [vp] * 6 + [i] * 7 + [vp] * 4
     ssd_lib.ssd_scratch_floats.argtypes = [i] * 6
     ssd_lib.ssd_scratch_floats.restype = ctypes.c_int64
     check(ssd_lib.ssd_init() == 0, "the previous ssd_scan did not load")
-    rg_lib = build.load(prev / "rglru.cu")
-    rg_lib.rglru_scan_f32.argtypes = [vp, vp, vp, i, i, i, i, vp, vp, vp, vp]
-    rg_lib.rglru_scratch_floats.argtypes = [i] * 4
-    rg_lib.rglru_scratch_floats.restype = ctypes.c_int64
-    return ssd_lib, rg_lib
-
-
-def phase_previous(torch, build, ssd, rglru, prev: Path, rows: dict) -> None:
-    """The two scans against the designs they replaced (``bind_previous``)
-    at the serve shapes, on the same inputs: ``PREVIOUS_TURNS`` turns of
-    the two, alternating which goes first (``turns``), and the outputs
-    compared. Neither time may come out below the bound of the kernel's
-    row in ``rows``. Each call launches on the current stream, which the
-    CUDA graphs of ``device_ms`` replace while they capture."""
-    import torch.nn.functional as F
-    ssd_lib, rg_lib = bind_previous(build, prev)
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(8)
     rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
@@ -986,7 +996,21 @@ def phase_previous(torch, build, ssd, rglru, prev: Path, rows: dict) -> None:
           "previous_spread": prev_t["spread"], "turns": PREVIOUS_TURNS,
           "max_scaled_diff": diff})
     del x, dt, b, c
+    torch.cuda.empty_cache()
 
+
+def previous_rglru(torch, build, mods, rg_lib, rows, burst) -> None:
+    """rglru_scan against the design it replaced (``DIR/rglru.cu``, commit
+    2b85a6a's) at the serve shape: outputs within ``RGLRU_ATOL``, times in
+    ``PREVIOUS_TURNS`` turns."""
+    import ctypes
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    rglru = mods["rglru"]
+    rg_lib.rglru_scan_f32.argtypes = [vp, vp, vp, i, i, i, i, vp, vp, vp, vp]
+    rg_lib.rglru_scratch_floats.argtypes = [i] * 4
+    rg_lib.rglru_scratch_floats.restype = ctypes.c_int64
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(8)
     bs, s, w = RGLRU_SHAPES[0]
     la, xi, h0 = rglru_inputs(torch, gen, bs, s, w)
 
@@ -1019,6 +1043,177 @@ def phase_previous(torch, build, ssd, rglru, prev: Path, rows: dict) -> None:
           "max_abs_diff": diff, "bitwise_equal_previous": equal})
     del la, xi, h0
     torch.cuda.empty_cache()
+
+
+def previous_norms(torch, build, mods, lib, rows, burst) -> None:
+    """The single norms sweeps against their two-launch design
+    (``DIR/fedagg.cu``, commit 33d513a's) at ``PREVIOUS_NORMS_SIZES``:
+    fedagg_norms (f32 and bf16 deltas), fedagg_norms_q and fedagg_fused's
+    norms must equal it to the bit; fedagg_norms with f32 deltas is timed
+    against it in ``PREVIOUS_TURNS`` turns."""
+    import ctypes
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    fedagg, compression = mods["fedagg"], mods["compression"]
+    for name in ("fedagg_norms_f32", "fedagg_norms_bf16"):
+        getattr(lib, name).argtypes = [vp] * 5 + [i64, vp]
+    lib.fedagg_norms_int8.argtypes = [vp] * 6 + [i64, vp]
+    lib.fedagg_fused_f32.argtypes = [vp] * 7 + [i64, vp]
+    lib.fedagg_norms_blocks.argtypes = [i64]
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(9)
+    eta = torch.full((), 0.37, device=dev)
+    for n in PREVIOUS_NORMS_SIZES:
+        x = torch.randn(n, device=dev, generator=g)
+        xs = x + 0.01 * torch.randn(n, device=dev, generator=g)
+        d = 0.05 * torch.randn(n, device=dev, generator=g)
+        db = d.bfloat16()
+        cd = compression.quantize_vec(d, "int8", n)
+
+        def old(fn, *ptrs, axpy_out=None):
+            buf = torch.empty(2 + 2 * lib.fedagg_norms_blocks(n), device=dev)
+            tail = (buf.data_ptr() + 8, buf.data_ptr(), n, build.stream(dev))
+            err = (fn(*ptrs, axpy_out.data_ptr(), *tail) if axpy_out
+                   is not None else fn(*ptrs, *tail))
+            check(err == 0, f"the previous norms sweep failed: {err}")
+            return buf[:2]
+        ptrs = (x.data_ptr(), xs.data_ptr())
+        old_f32 = lambda: old(lib.fedagg_norms_f32, *ptrs, d.data_ptr())
+        new_f32 = lambda: fedagg.fedagg_norms(x, xs, d)
+        fused_out = torch.empty_like(x)
+        equal = {
+            "f32": torch.equal(new_f32(), old_f32()),
+            "bf16": torch.equal(fedagg.fedagg_norms(x, xs, db),
+                                old(lib.fedagg_norms_bf16, *ptrs,
+                                    db.data_ptr())),
+            "int8": torch.equal(fedagg.fedagg_norms_q(x, xs, cd.q, cd.scales),
+                                old(lib.fedagg_norms_int8, *ptrs,
+                                    cd.q.data_ptr(), cd.scales.data_ptr())),
+            "fused": torch.equal(fedagg.fedagg_fused(x, xs, d, eta)[1],
+                                 old(lib.fedagg_fused_f32, *ptrs,
+                                     d.data_ptr(), eta.data_ptr(),
+                                     axpy_out=fused_out))}
+        check(all(equal.values()),
+              f"norms n={n} not bitwise equal to the previous design: "
+              f"{equal}")
+        del db, cd, fused_out
+        k, prev_t = turns(new_f32, old_f32, 5 if n >= (1 << 28) else 20,
+                          PREVIOUS_TURNS)
+        bms, by = bound_ms(*fedagg.norms_work(n))
+        check(min(k["device"], prev_t["device"]) >= bms,
+              f"fedagg_norms n={n} timed below its bound: {k}, previous "
+              f"{prev_t}")
+        emit({"phase": "previous_design", "name": "fedagg_norms", "n": n,
+              "ms": k["device"], "previous_ms": prev_t["device"],
+              "ratio": k["ratio"], "previous_spread": prev_t["spread"],
+              "turns": PREVIOUS_TURNS, "bound_ms": bms, "bound_by": by,
+              "launches_per_call": 1, "previous_launches_per_call": 2,
+              "bitwise_equal_previous": equal})
+        del x, xs, d
+        torch.cuda.empty_cache()
+
+
+def previous_norms_batched(torch, build, mods, lib, rows, burst) -> None:
+    """fedagg_norms_batched and fedagg_norms_batched_q against their
+    warp-per-dot design (``DIR/fedagg_batched.cu``, commit 33d513a's) at the
+    path's median burst ``burst`` (n = 65,536, f32 deltas) and at every
+    (B, n, delta) of the kernel rows (``BATCHED`` with f32 and bf16 deltas,
+    ``BATCHED_Q`` with int8 ones, ``BATCHED_BIG`` with f32 and int8): both
+    within ``BATCHED_RTOL`` of each other (as of the plain version), times
+    in ``PREVIOUS_TURNS`` turns."""
+    import ctypes
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fedagg, compression = mods["fedagg"], mods["compression"]
+    for name in ("fedagg_norms_batched_f32", "fedagg_norms_batched_bf16"):
+        getattr(lib, name).argtypes = [vp, vp, vp, i, i64, vp, vp, vp]
+    lib.fedagg_norms_batched_int8.argtypes = [vp, vp, vp, vp, i, i64, vp, vp,
+                                              vp]
+    lib.fedagg_norms_batched_scratch.argtypes = [i64, i]
+    lib.fedagg_norms_batched_scratch.restype = i64
+    check(lib.fedagg_batched_init() == 0,
+          "the previous fedagg_norms_batched did not load")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(10)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = ([(burst, 65536, f32), (*BATCHED_BIG, f32)]
+              + [(b, n, dt) for b, n in BATCHED for dt in (f32, bf16)]
+              + [(b, n, torch.int8) for b, n in BATCHED_Q + [BATCHED_BIG]])
+    for b, n, dt in shapes:
+        x = torch.randn(n, device=dev, generator=g)
+        xs = x + 0.01 * torch.randn(b, n, device=dev, generator=g)
+        d = 0.05 * torch.randn(b, n, device=dev, generator=g)
+        sc = None
+        if dt == torch.int8:
+            d[:, :fedagg.QBLOCK] = 0.0
+            wires = [compression.quantize_vec(row, "int8", n) for row in d]
+            d = torch.stack([w.q for w in wires])
+            sc = torch.stack([w.scales for w in wires])
+            del wires
+        else:
+            d = d.to(dt)
+        out_len = 2 * b + 2 * b * b
+
+        def old():
+            buf = torch.empty(out_len + lib.fedagg_norms_batched_scratch(n, b),
+                              device=dev)
+            tail = (b, n, buf.data_ptr() + 4 * out_len, buf.data_ptr(),
+                    build.stream(dev))
+            if sc is not None:
+                err = lib.fedagg_norms_batched_int8(
+                    x.data_ptr(), xs.data_ptr(), d.data_ptr(), sc.data_ptr(),
+                    *tail)
+            else:
+                fn = (lib.fedagg_norms_batched_f32 if dt == f32
+                      else lib.fedagg_norms_batched_bf16)
+                err = fn(x.data_ptr(), xs.data_ptr(), d.data_ptr(), *tail)
+            check(err == 0, f"the previous norms_batched failed: {err}")
+            return buf[:out_len]
+        new = lambda: fedagg.norms_batched_packed(x, xs, d, sc)
+        rel, scaled, diff = batched_errors(fedagg.split_batched(new(), b),
+                                           fedagg.split_batched(old(), b))
+        rtol = BATCHED_RTOL[n]
+        tag = {"B": b, "n": n, "delta": str(dt).replace("torch.", "")}
+        check(rel <= rtol and scaled <= rtol,
+              f"norms_batched {tag} against its previous design: rel {rel}, "
+              f"scaled {scaled}")
+        k, prev_t = turns(new, old, 5 if n > (1 << 20) else 20,
+                          PREVIOUS_TURNS)
+        dbytes = {f32: 4, bf16: 2, torch.int8: 1}[dt]
+        bms, by = bound_ms(*fedagg.norms_batched_work(b, n, dbytes))
+        check(min(k["device"], prev_t["device"]) >= bms,
+              f"fedagg_norms_batched {tag} timed below its bound: {k}, "
+              f"previous {prev_t}")
+        emit({"phase": "previous_design",
+              "name": ("fedagg_norms_batched_q" if sc is not None
+                       else "fedagg_norms_batched"), **tag,
+              "ms": k["device"], "previous_ms": prev_t["device"],
+              "ratio": k["ratio"], "previous_spread": prev_t["spread"],
+              "turns": PREVIOUS_TURNS, "bound_ms": bms, "bound_by": by,
+              "max_rel_diff": rel, "max_scaled_diff": scaled,
+              "max_abs_diff": diff})
+        del x, xs, d, sc
+        torch.cuda.empty_cache()
+
+
+#: the previous designs ``--previous DIR`` can time, by source file name
+PREVIOUS = {"ssd.cu": previous_ssd, "rglru.cu": previous_rglru,
+            "fedagg.cu": previous_norms,
+            "fedagg_batched.cu": previous_norms_batched}
+
+
+def phase_previous(torch, build, mods: dict, prev: Path, rows: dict,
+                   burst: int) -> None:
+    """Every kernel whose previous design ``prev`` holds (``PREVIOUS``),
+    built from there (one ``nvcc`` each, with the ``.cuh`` headers beside
+    them) and held against the current one on the same inputs. Each call
+    launches on the current stream, which the CUDA graphs of ``device_ms``
+    replace while they capture. No time may come out below the kernel's
+    bound."""
+    names = [name for name in PREVIOUS if (prev / name).exists()]
+    check(bool(names), f"--previous {prev} holds none of {list(PREVIOUS)}")
+    build.build_all([prev / name for name in names])
+    for name in names:
+        PREVIOUS[name](torch, build, mods, build.load(prev / name), rows,
+                       burst)
 
 
 def expected_launches(kinds, gen_len: int) -> dict:
@@ -1377,8 +1572,10 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one "
                                  "NVIDIA GPU and check it.")
     ap.add_argument("--previous", type=Path, default=None, metavar="DIR",
-                    help="time the SSD and RG-LRU scans in turns with "
-                         "DIR/ssd.cu and DIR/rglru.cu (commit 2b85a6a's)")
+                    help="time each kernel whose previous design DIR holds "
+                         "(ssd.cu, rglru.cu: commit 2b85a6a's; fedagg.cu, "
+                         "fedagg_batched.cu with fedagg_common.cuh: commit "
+                         "33d513a's) in turns with that design")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1416,21 +1613,26 @@ def main(argv) -> int:
     main_rows.update(phase_arch_kernels(torch, rglru, swa_attn))
     main_rows["fedagg_fused"] = phase_fused(torch, fedagg)
     main_rows["ssd_scan"] = phase_ssd_kernels(torch, ssd_ops, SSM)
-    if args.previous is not None:
-        phase_previous(torch, build, ssd, rglru, args.previous.resolve(),
-                       main_rows)
     launches: dict = {}
     phase_sims(torch, fedagg, launches)
     bursts = phase_paths(torch, fedagg, compression, launches)
     # the batched pairs once more at their runs' median B, n = 65536
-    rows = (*batched_rows(torch, fedagg, bursts["synthetic-burst-long"],
-                          65536, torch.float32, seed=2),
+    burst = bursts["synthetic-burst-long"]
+    rows = (*batched_rows(torch, fedagg, burst, 65536, torch.float32,
+                          seed=2),
             *batched_q_rows(torch, fedagg, compression,
                             bursts["synthetic-burst-int8"], 65536, seed=2))
     for row in rows:
         row["main_path"] = True
         emit(row)
         main_rows[row["name"]] = row
+    emit(batched_passes(torch, fedagg, burst, 65536,
+                        main_rows["fedagg_norms_batched"]["bound_ms"]))
+    if args.previous is not None:
+        phase_previous(torch, build, {"ssd": ssd, "rglru": rglru,
+                                      "fedagg": fedagg,
+                                      "compression": compression},
+                       args.previous.resolve(), main_rows, burst)
     phase_profile(torch)
     serve_kernels = {"rglru_scan": rglru.rglru_scan,
                      "swa_decode_attention": swa_attn.swa_decode_attention,

@@ -28,10 +28,22 @@
 // At 2^28 the bound is 0.96 ms (12 bytes per element at 3.35 TB/s); at the
 // paper's lengths (65,536 to 262,144) the call is set by launch latency.
 //
-// Determinism: the norms reduction has no float atomics. Stage 1 writes one
-// (2,) partial per block; stage 2 is one block that folds the partials in a
-// fixed order. The grid size depends only on n, so a given input gives the
-// same bits on every run.
+// One launch per norms sweep. At the paper's lengths a launch costs more
+// than the sweep's bytes, so the fold of the per-block partials rides in the
+// sweep's own launch: each block writes its (2,) partial and draws an
+// integer ticket with an acquire-release atomic add, which orders the
+// partial before the draw and, in the block that draws the last ticket, the
+// reads of every partial after it (no separate fence: a fence around a
+// plain atomicAdd measured slower, PERF.md). That block folds the partials
+// in a fixed order (thread t takes partials t, t + 256, ..., then the block
+// sum) and sets the ticket back to 0 for the next sweep. The ticket is one
+// zeroed int32 per device that the wrapper keeps; sweeps that share it run
+// one after another on one stream.
+//
+// Determinism: no float atomics (the ticket is an integer). The grid size
+// depends only on n and the fold's order only on the grid, so a given input
+// gives the same bits on every run, and the same bits as the two-launch
+// design (a sweep, then a one-block fold) that this one replaced.
 //
 // Plain C interface for ctypes. Every entry point launches on the stream it
 // is given, does not synchronise, and returns cudaGetLastError().
@@ -49,15 +61,18 @@ __device__ __forceinline__ float4 axpy4(float4 a, float e, float4 c) {
       __fadd_rn(a.z, __fmul_rn(e, c.z)), __fadd_rn(a.w, __fmul_rn(e, c.w)));
 }
 
-// Stage 1: partial[2*block + {0,1}] = this block's share of
-// [sum (x_t - x_s)^2, sum d^2]. With kAxpy (fedagg_fused) the same sweep also
-// writes out = x_t + eta * d; the sums are the same code in the same order,
-// so the partials equal the norms sweep's to the bit.
+// partial[2*block + {0,1}] = this block's share of
+// [sum (x_t - x_s)^2, sum d^2]; the block that draws the last ticket folds
+// the partials into norms[0..1]. With kAxpy (fedagg_fused) the same sweep
+// also writes out = x_t + eta * d; the sums are the same code in the same
+// order, so the norms equal the norms sweep's to the bit.
 template <typename L, bool kAxpy>
 __global__ void __launch_bounds__(kThreads)
-norms_partial(const float* __restrict__ xt, const float* __restrict__ xs,
-              L d, float* __restrict__ partial, int64_t n4,
-              const float* __restrict__ eta, float* __restrict__ out) {
+norms_sweep(const float* __restrict__ xt, const float* __restrict__ xs, L d,
+            float* __restrict__ partial, unsigned* __restrict__ ticket,
+            float* __restrict__ norms, int64_t n4,
+            const float* __restrict__ eta, float* __restrict__ out) {
+  __shared__ bool last;
   float s0 = 0.0f, s1 = 0.0f;
   const float e = kAxpy ? __ldg(eta) : 0.0f;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
@@ -74,22 +89,25 @@ norms_partial(const float* __restrict__ xt, const float* __restrict__ xs,
   if (threadIdx.x == 0) {
     partial[2 * blockIdx.x] = s0;
     partial[2 * blockIdx.x + 1] = s1;
+    // release: the partial is visible before the ticket is drawn; acquire:
+    // the last block sees every partial
+    unsigned drawn;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+                 : "=r"(drawn) : "l"(ticket) : "memory");
+    last = drawn == gridDim.x - 1;
   }
-}
-
-// Stage 2: one block folds the partials, thread t taking t, t+256, ...
-__global__ void __launch_bounds__(kThreads)
-norms_final(const float* __restrict__ partial, int nblocks,
-            float* __restrict__ out) {
-  float s0 = 0.0f, s1 = 0.0f;
-  for (int j = threadIdx.x; j < nblocks; j += kThreads) {
-    s0 += partial[2 * j];
-    s1 += partial[2 * j + 1];
+  __syncthreads();
+  if (!last) return;
+  s0 = s1 = 0.0f;
+  for (int j = threadIdx.x; j < (int)gridDim.x; j += kThreads) {
+    s0 += __ldcg(partial + 2 * j);
+    s1 += __ldcg(partial + 2 * j + 1);
   }
   block_sum2(s0, s1);
   if (threadIdx.x == 0) {
-    out[0] = s0;
-    out[1] = s1;
+    norms[0] = s0;
+    norms[1] = s1;
+    *ticket = 0u;
   }
 }
 
@@ -106,20 +124,20 @@ axpy(const float* __restrict__ xt, L d, const float* __restrict__ eta,
   }
 }
 
-// The norms (eta and axpy_out null) or, with both given, the fused sweep.
+// The norms (eta and axpy_out null) or, with both given, the fused sweep:
+// one launch.
 template <typename L>
 int launch_norms(const float* xt, const float* xs, L d, float* partial,
-                 float* out, int64_t n, cudaStream_t stream,
+                 unsigned* ticket, float* out, int64_t n, cudaStream_t stream,
                  const float* eta = nullptr, float* axpy_out = nullptr) {
   const int64_t n4 = n / 4;
   const int g = grid_for(n4);
   if (axpy_out)
-    norms_partial<L, true><<<g, kThreads, 0, stream>>>(xt, xs, d, partial,
-                                                       n4, eta, axpy_out);
+    norms_sweep<L, true><<<g, kThreads, 0, stream>>>(
+        xt, xs, d, partial, ticket, out, n4, eta, axpy_out);
   else
-    norms_partial<L, false><<<g, kThreads, 0, stream>>>(xt, xs, d, partial,
-                                                        n4, nullptr, nullptr);
-  norms_final<<<1, kThreads, 0, stream>>>(partial, g, out);
+    norms_sweep<L, false><<<g, kThreads, 0, stream>>>(
+        xt, xs, d, partial, ticket, out, n4, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -145,27 +163,33 @@ int fedagg_norms_blocks(int64_t n) { return grid_for(n / 4); }
 
 // n is a multiple of 65536 and every pointer is 16-byte aligned (the wrapper
 // checks both). delta is f32 (_f32), bf16 (_bf16) or int8 q with f32 scales
-// (_int8).
+// (_int8). ticket is a zeroed uint32 that no other sweep uses meanwhile; the
+// sweep leaves it at 0.
 int fedagg_norms_f32(const void* xt, const void* xs, const void* d,
-                     void* partial, void* out, int64_t n, void* stream) {
+                     void* partial, void* ticket, void* out, int64_t n,
+                     void* stream) {
   return launch_norms((const float*)xt, (const float*)xs,
                       F32Delta{(const float*)d}, (float*)partial,
-                      (float*)out, n, (cudaStream_t)stream);
+                      (unsigned*)ticket, (float*)out, n,
+                      (cudaStream_t)stream);
 }
 
 int fedagg_norms_bf16(const void* xt, const void* xs, const void* d,
-                      void* partial, void* out, int64_t n, void* stream) {
+                      void* partial, void* ticket, void* out, int64_t n,
+                      void* stream) {
   return launch_norms((const float*)xt, (const float*)xs,
                       BF16Delta{(const uint16_t*)d}, (float*)partial,
-                      (float*)out, n, (cudaStream_t)stream);
+                      (unsigned*)ticket, (float*)out, n,
+                      (cudaStream_t)stream);
 }
 
 int fedagg_norms_int8(const void* xt, const void* xs, const void* q,
-                      const void* scales, void* partial, void* out, int64_t n,
-                      void* stream) {
+                      const void* scales, void* partial, void* ticket,
+                      void* out, int64_t n, void* stream) {
   return launch_norms((const float*)xt, (const float*)xs,
                       I8Delta{(const int8_t*)q, (const float*)scales},
-                      (float*)partial, (float*)out, n, (cudaStream_t)stream);
+                      (float*)partial, (unsigned*)ticket, (float*)out, n,
+                      (cudaStream_t)stream);
 }
 
 int fedagg_axpy_f32(const void* xt, const void* d, const void* eta, void* out,
@@ -188,22 +212,22 @@ int fedagg_axpy_int8(const void* xt, const void* q, const void* scales,
 }
 
 // The fused sweep: axpy_out = x_t + eta * d and out = the norms, in one pass
-// over (x_t, x_stale, d) and the fixed-order fold.
+// over (x_t, x_stale, d) that also folds the partials (one launch).
 int fedagg_fused_f32(const void* xt, const void* xs, const void* d,
                      const void* eta, void* axpy_out, void* partial,
-                     void* out, int64_t n, void* stream) {
+                     void* ticket, void* out, int64_t n, void* stream) {
   return launch_norms((const float*)xt, (const float*)xs,
                       F32Delta{(const float*)d}, (float*)partial,
-                      (float*)out, n, (cudaStream_t)stream,
+                      (unsigned*)ticket, (float*)out, n, (cudaStream_t)stream,
                       (const float*)eta, (float*)axpy_out);
 }
 
 int fedagg_fused_bf16(const void* xt, const void* xs, const void* d,
                       const void* eta, void* axpy_out, void* partial,
-                      void* out, int64_t n, void* stream) {
+                      void* ticket, void* out, int64_t n, void* stream) {
   return launch_norms((const float*)xt, (const float*)xs,
                       BF16Delta{(const uint16_t*)d}, (float*)partial,
-                      (float*)out, n, (cudaStream_t)stream,
+                      (unsigned*)ticket, (float*)out, n, (cudaStream_t)stream,
                       (const float*)eta, (float*)axpy_out);
 }
 

@@ -14,22 +14,51 @@
 // with s_b = x_t - xs_b,
 //   dist[b] = <s_b, s_b>, dn[b] = <D_b, D_b>, cross[b][k] = <s_b, D_k>,
 //   gram[k][l] = <D_k, D_l>.
-// It reads 4(2B+1) bytes per element (8B+4 with a bf16 delta) and does about
-// 4B^2+5B flops on them: 7.9 flop/byte at B = 15, under the H100's f32 ridge
-// of 20 flop/byte (67 TFLOP/s over 3.35 TB/s), so device memory bounds it.
-// A thread cannot hold the 2B^2+2B sums (480 at B = 15, past the 255-register
-// limit), so the kernel stages instead: each block copies a chunk of C
-// elements of the B drifts and the B deltas into shared memory (C shrinks as
-// B grows, so the chunk stays near 64 KB), then each warp takes a fixed set
-// of the B + B^2 + B(B+1)/2 dot products (gram is symmetric: only k <= l is
-// computed and the fold mirrors it), its lanes sweep the chunk with 16-byte
-// shared-memory loads, a warp shuffle sums them, and lane 0 adds the chunk's
-// sum to the block's accumulator in shared memory. Blocks walk the chunks in
-// a grid-stride loop and write one partial vector each; a second launch,
-// one thread per output, folds the partials in block order. No float
-// atomics and a grid set by (n, B) alone: the result is the same to the bit
-// on every run. No tensor cores and no TF32: the contractions stay in f32,
-// as the schedule needs.
+// It reads 4(B+1) + 4B bytes per element (4(B+1) + 2B with a bf16 delta)
+// and does 3B^2 + 4B flops on them (fedagg.py::norms_batched_work): 3.3
+// flop/byte at B = 8, 8.9 at B = 23, under the H100's f32 ridge of 20
+// (67 TFLOP/s over 3.35 TB/s), so device memory bounds it; at the paper's
+// lengths, where the inputs sit in L2, the dots' shared-memory reads and
+// the latency of a short pipeline set the time (PERF.md).
+//
+// The design is a tall, skinny split-K product. cross and gram are one
+// contraction, [S; D] D^T, a (2B x B) output over K = n (S holds the B
+// drifts); dist is diag(S S^T) on top. The output is cut into panels of at
+// most 64 x 64 (one panel up to B = 32); a block computes one panel over a
+// contiguous K-range, and the grid, (K-ranges, panels), is set by (n, B)
+// alone. In a block:
+//   - Stages of kt4 float4 columns of the panel's rows (the drifts' and the
+//     deltas' rows; the column rows are among them where the panel's rows
+//     hold them) sit in shared memory, double-buffered. Each thread owns
+//     fixed (row, column) pairs of a stage and copies them with cp.async:
+//     x_stale and f32 deltas straight into their rows, bf16 and int8 deltas
+//     as their raw bytes (and scales). The next stage's copies are in
+//     flight, holding no register, while the tiles compute on the current
+//     one; then each thread turns its pairs into x_t - x_stale and widened
+//     deltas in place.
+//   - Each thread owns a 4 x 4 register tile of the panel (rows rt + i RT,
+//     columns ct + j CT: neighbouring threads read neighbouring rows, whose
+//     16-byte reads fall in different banks with the one-float4 row pad)
+//     and accumulates it over the float4 columns of its thread group: 2
+//     fused multiply-adds per 32-bit shared-memory load, the 16 sums
+//     interleaved. Up to 16 thread groups split each stage's columns when a
+//     panel has fewer tiles than the block has threads (three at B = 23).
+//     A stage's sums are added to the range's once per stage, so no chain
+//     of rounded adds is longer than a stage's columns or the range's
+//     stages. No shuffle and no shared-memory accumulator per stage.
+//   - The threads that turn the drifts into x_t - x_stale add up dist.
+//   - At the end the groups' tiles are added in a fixed pairwise tree
+//     (shuffles where partners share a warp, else shared memory) and the
+//     dist sums a warp per row, and the block writes its K-range's
+//     partials: the product column by column, so neighbouring lanes store
+//     to neighbouring addresses, then dist.
+// A second launch, programmatic-dependent on the first, folds the partials
+// in a fixed order: 32 neighbouring entries per block, 16 warps each
+// summing a 16th of the K-ranges in order, then the 16 sums in order;
+// dn is gram's diagonal and gram's lower half the mirror of its upper.
+// No float atomics and a grid set by (n, B): the result is the same to the
+// bit on every run. No tensor cores and no TF32: the contractions stay in
+// f32, as the schedule needs.
 //
 // apply_batched: out = x_t + sum_b eta_b D_b. It reads 4(B+1) bytes per
 // element and writes 4, for 2B+1 flops: device memory bounds it. It streams
@@ -47,110 +76,400 @@
 namespace fedagg {
 namespace {
 
-constexpr int kMaxB = 128;            // largest burst either kernel takes
-constexpr int kBatchedBlocks = 264;   // two blocks per SM of an H100
+constexpr int kMaxB = 128;          // largest burst either kernel takes
 constexpr int kWarps = kThreads / 32;
+constexpr int kGridBlocks = 264;    // two blocks per SM of an H100
+constexpr int kPanel = 64;          // output rows and columns of a panel
+constexpr int kStage4 = 1024;       // float4 groups of one stage (16 KB)
+constexpr int kItems = kStage4 / kThreads;  // staged groups per thread
+constexpr int kMaxKT4 = 128;        // float4 columns of a stage at most
+constexpr int kMaxGroups = 16;      // thread groups splitting a stage
+constexpr int kMaxRawBytes = 8;     // raw bytes of a delta's float4 group
+constexpr int kFoldWarps = 16;      // warps of a fold block
 
-// Elements per staged chunk: about 8192 / B (64 KB of drifts and deltas),
-// a power of two between 64 and 1024. n, a multiple of 65536, divides.
-int chunk_for(int b) {
-  int c = 1024;
-  while (c > 64 && c * b > 8192) c >>= 1;
-  return c;
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline int row_panels(int b) {
+  return (2 * b + kPanel - 1) / kPanel;
+}
+__host__ __device__ inline int panels(int b) {
+  return row_panels(b) * ((b + kPanel - 1) / kPanel);
 }
 
-// Partial layout per block: [dist B][cross B*B][gram B*B]; gram entries with
-// k > l are never written or read.
-__host__ __device__ inline int partial_len(int b) { return b + 2 * b * b; }
+// Panel y of the (2B x B) output: rows [ra, ra + r) of [S; D] against
+// columns [ca, ca + c) of D, and how a block stages and tiles it.
+struct Panel {
+  int ra, r, ca, c;
+  int rt, ct;     // 4 x 4 tiles down and across
+  int groups;     // thread groups splitting a stage's columns
+  int staged;     // rows copied per stage: the r rows, and the c column
+                  // rows where the r rows do not hold them
+  int colbase;    // shared-memory row of column 0
+  int rows;       // shared-memory rows, the padding the tiles read included
+  int kt4;        // float4 columns per stage, a power of two in [8, 128]
+  int lkt4;       // log2(kt4)
+  // one stage buffer, in float4s: the f32 rows (kt4 + 1 apart), x_t's
+  // columns, the raw delta groups of the staged rows (kMaxRawBytes each)
+  // and their int8 scales
+  int xcol, rawcol, scalecol, size;
+};
+
+__host__ __device__ inline Panel panel_of(int b, int y) {
+  Panel p;
+  const int rp = row_panels(b);
+  p.ra = (y % rp) * kPanel;
+  p.ca = (y / rp) * kPanel;
+  p.r = imin(kPanel, 2 * b - p.ra);
+  p.c = imin(kPanel, b - p.ca);
+  p.rt = (p.r + 3) / 4;
+  p.ct = (p.c + 3) / 4;
+  p.groups = imin(kMaxGroups, kThreads / (p.rt * p.ct));
+  const int cb = b + p.ca - p.ra;  // column 0 among the panel's rows
+  const bool held = cb >= 0 && cb + p.c <= p.r;
+  p.staged = held ? p.r : p.r + p.c;
+  p.colbase = held ? cb : 4 * p.rt;
+  p.rows = imax(4 * p.rt, p.colbase + 4 * p.ct);
+  p.kt4 = kMaxKT4;
+  p.lkt4 = 7;
+  for (; p.kt4 * p.staged > kStage4; p.kt4 >>= 1) --p.lkt4;
+  p.xcol = p.rows * (p.kt4 + 1);
+  p.rawcol = p.xcol + p.kt4;
+  p.scalecol = p.rawcol + p.staged * p.kt4 * kMaxRawBytes / 16;
+  p.size = p.scalecol + (p.staged + 3) / 4;
+  return p;
+}
+
+// A K-range's partials: the (2B x B) product column by column (row r of
+// [S; D] and column c of D at c * 2B + r, so a warp's neighbouring rows
+// store to neighbouring addresses), then dist.
+__host__ __device__ inline int partial_len(int b) { return 2 * b * b + b; }
+
+// K-ranges: set by (n, B) alone; every range of every panel holds at least
+// one stage.
+int grid_k(int64_t n, int b) {
+  int kt4 = 0;
+  for (int y = 0; y < panels(b); ++y) kt4 = imax(kt4, panel_of(b, y).kt4);
+  const int64_t stages = n / (4 * kt4);
+  const int g = imax(1, kGridBlocks / panels(b));
+  return (int)(g < stages ? g : stages);
+}
 
 size_t norms_smem_bytes(int b) {
-  return sizeof(float) * ((size_t)2 * b * chunk_for(b) + partial_len(b));
+  size_t most = 0;
+  for (int y = 0; y < panels(b); ++y) {
+    const Panel p = panel_of(b, y);
+    const size_t stages = 2 * sizeof(float4) * p.size;
+    const size_t fold = sizeof(float) *
+        ((size_t)(p.groups + 1) / 2 * 16 * p.rt * p.ct + (size_t)p.r * p.kt4);
+    if (stages > most) most = stages;
+    if (fold > most) most = fold;
+  }
+  return most;
 }
 
-template <typename L>
-__global__ void __launch_bounds__(kThreads)
-norms_batched_partial(const float* __restrict__ xt,
-                      const float* __restrict__ xs, L d, int b, int64_t n,
-                      int c, int64_t nchunks, float* __restrict__ partial) {
-  extern __shared__ float4 smem4[];
-  float* sS = reinterpret_cast<float*>(smem4);  // b rows of c drifts
-  float* sD = sS + (size_t)b * c;               // b rows of c deltas
-  float* acc = sD + (size_t)b * c;              // partial_len(b) sums
-  const int p = partial_len(b), c4 = c / 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = threadIdx.x; o < p; o += kThreads) acc[o] = 0.0f;
+// Lets the fold, launched after this kernel on the stream, start
+// (programmatic dependent launch): its blocks are then resident, waiting,
+// when the partials end.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
-  for (int64_t ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
-    const int64_t base4 = ch * c4;
-    __syncthreads();  // the previous chunk's dots are done with the stage
-    // every thread stages (row, column) pairs, so all loads are in flight
-    // at once whatever B is; x_t is read once per row, from cache after
-    // the first
-    for (int idx = threadIdx.x; idx < b * c4; idx += kThreads) {
-      const int r = idx / c4, j = idx - r * c4;
-      const float4 x = load_f32(xt, base4 + j);
-      const float4 s = load_f32(xs + r * n, base4 + j);
-      reinterpret_cast<float4*>(sS + (size_t)r * c)[j] =
-          make_float4(x.x - s.x, x.y - s.y, x.z - s.z, x.w - s.w);
-      reinterpret_cast<float4*>(sD + (size_t)r * c)[j] =
-          d.row(r, n)(base4 + j);
+// Waits until the kernel before this one on the stream has ended and its
+// writes are visible.
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Copies of 16, 8 or 4 bytes from device memory to shared memory that leave
+// no register busy; cp_wait() waits for this thread's.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One staged bf16 or int8 delta group (and its int8 scale) in f32.
+template <typename L>
+__device__ __forceinline__ float4 widen_staged(const void* raw, float scale) {
+  if constexpr (L::kRawBytes == 8)
+    return L::widen(*reinterpret_cast<const uint2*>(raw));
+  else
+    return L::widen(*reinterpret_cast<const char4*>(raw), scale);
+}
+
+// The fold, its own launch, programmatic-dependent on the tiles: block i
+// takes partial entries [32 i, 32 i + 32), lane l entry 32 i + l; warp w
+// of 16 sums the K-ranges [w gk / 16, (w + 1) gk / 16) in order, so each
+// load of a warp reads 32 neighbouring floats, and warp 0 adds the 16
+// warps' sums in order (16 warps measured faster than 8, PERF.md). Each
+// entry's sum goes to the outputs it gives: a cross term; a Gram term
+// k <= l to gram[k][l], gram[l][k] and, for k = l, dn[k] (so dn is gram's
+// diagonal and gram symmetric, to the bit); a dist. The product's entries
+// below gram's diagonal are dropped.
+__global__ void __launch_bounds__(kFoldWarps * 32)
+norms_batched_fold(const float* __restrict__ partial, int gk, int b,
+                   float* __restrict__ out) {
+  __shared__ float sums[kFoldWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int len = partial_len(b), e = blockIdx.x * 32 + lane;
+  const int k0 = w * gk / kFoldWarps, k1 = (w + 1) * gk / kFoldWarps;
+  wait_prerequisites();
+  float s = 0.0f;
+  if (e < len) {
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) s += partial[(int64_t)k * len + e];
+  }
+  sums[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || e >= len) return;
+  for (int v = 1; v < kFoldWarps; ++v) s += sums[v][lane];
+  const int r = e % (2 * b), c = e / (2 * b);
+  if (e >= 2 * b * b) {
+    out[e - 2 * b * b] = s;  // dist
+  } else if (r < b) {
+    out[2 * b + r * b + c] = s;  // cross[r][c]
+  } else if (r - b <= c) {
+    const int k = r - b;
+    out[2 * b + b * b + k * b + c] = s;
+    out[2 * b + b * b + c * b + k] = s;
+    if (k == c) out[b + k] = s;
+  }
+}
+
+// Block (k, y): panel y over K-range k; writes the panel's entries of
+// K-range k's partials (and dist for its drift rows when it holds column
+// 0).
+template <typename L>
+__global__ void __launch_bounds__(kThreads, 2)
+norms_batched_tiles(const float* __restrict__ xt,
+                    const float* __restrict__ xs, L d, int b, int64_t n,
+                    float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  launch_dependents();
+  const Panel p = panel_of(b, blockIdx.y);
+  const int t = threadIdx.x, stride4 = p.kt4 + 1;
+  const int tiles = p.rt * p.ct;
+  const bool drifts = p.ra < b;  // the panel's rows start with drifts
+  const bool dist_here = drifts && p.ca == 0;
+
+  // staged (row, column) pairs of this thread: column k4, slots
+  // slot0 + j * step; slot s is row p.ra + s of [S; D] for s < r, else
+  // row b + ca + (s - r); shared-memory row s, else colbase + (s - r).
+  // Rows the tiles read past them hold what they hold: the outputs they
+  // feed are dropped.
+  const int k4 = t & (p.kt4 - 1), slot0 = t >> p.lkt4;
+  const int step = kThreads >> p.lkt4;
+  float dacc[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) dacc[j] = 0.0f;
+
+  // copies of stage st into the buffer at float4 `to`: the drifts' rows as
+  // x_stale (and, by the threads of slot 0, x_t's columns), the deltas' as
+  // their raw bytes, f32 ones straight into their rows
+  auto issue = [&](int64_t st, int to) {
+    const int64_t g4 = st * p.kt4 + k4;
+    if (drifts && slot0 == 0)
+      cp_async<16>(smem4 + to + p.xcol + k4, xt + 4 * g4);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int s = slot0 + j * step;
+      if (s < p.staged) {
+        const int row = s < p.r ? p.ra + s : b + p.ca + (s - p.r);
+        const int m = s < p.r ? s : p.colbase + (s - p.r);
+        float4* const dst = smem4 + to + m * stride4 + k4;
+        if (row < b) {
+          cp_async<16>(dst, xs + row * n + 4 * g4);
+        } else {
+          const L dr = d.row(row - b, n);
+          if constexpr (L::kRawBytes == 16) {
+            cp_async<16>(dst, dr.raw(g4));
+          } else {
+            char* const raw = reinterpret_cast<char*>(smem4 + to + p.rawcol);
+            float* const scales =
+                reinterpret_cast<float*>(smem4 + to + p.scalecol);
+            cp_async<L::kRawBytes>(raw + (s * p.kt4 + k4) * kMaxRawBytes,
+                                   dr.raw(g4));
+            if constexpr (L::kRawBytes == 4) {
+              if (k4 == 0) cp_async<4>(scales + s, dr.scale(g4));
+            }
+          }
+        }
+      }
+    }
+    cp_commit();
+  };
+  // after the copies of the buffer at `to` have landed: the drifts
+  // x_t - x_stale in place (and their squares into dist), the deltas
+  // widened into their rows
+  auto convert = [&](int to) {
+    const float4 x = drifts ? smem4[to + p.xcol + k4]
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int s = slot0 + j * step;
+      if (s < p.staged) {
+        const int row = s < p.r ? p.ra + s : b + p.ca + (s - p.r);
+        const int m = s < p.r ? s : p.colbase + (s - p.r);
+        float4* const dst = smem4 + to + m * stride4 + k4;
+        if (row < b) {
+          const float4 o = *dst;
+          const float4 v =
+              make_float4(x.x - o.x, x.y - o.y, x.z - o.z, x.w - o.w);
+          *dst = v;
+          if (dist_here)
+            dacc[j] += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+        } else if constexpr (L::kRawBytes != 16) {
+          const char* raw = reinterpret_cast<const char*>(smem4 + to +
+                                                          p.rawcol);
+          *dst = widen_staged<L>(
+              raw + (s * p.kt4 + k4) * kMaxRawBytes,
+              reinterpret_cast<const float*>(smem4 + to + p.scalecol)[s]);
+        }
+      }
+    }
+  };
+
+  const int g = t / tiles, tt = t % tiles;
+  const int rt = tt % p.rt, ct = tt / p.rt;
+  const bool computes = g < p.groups;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  const int64_t nst = n / (4 * p.kt4);
+  const int64_t s0 = nst * blockIdx.x / gridDim.x;
+  const int64_t s1 = nst * (blockIdx.x + 1) / gridDim.x;
+  // iteration st copies stage st + 1 into one buffer while the tiles
+  // compute stage st from the other (the first iteration only copies)
+  for (int64_t st = s0 - 1; st < s1; ++st) {
+    const int nxt = ((st + 1 - s0) & 1) * p.size, cur = p.size - nxt;
+    const bool more = st + 1 < s1;
+    if (more) issue(st + 1, nxt);
+    if (computes && st >= s0) {
+      // the stage's sums, added to the range's once per stage: no chain of
+      // rounded adds longer than a stage's columns or the range's stages
+      float sacc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sacc[i][j] = 0.0f;
+      for (int c4 = g; c4 < p.kt4; c4 += p.groups) {
+        float4 a[4], e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = smem4[cur + (rt + i * p.rt) * stride4 + c4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          e[j] = smem4[cur + (p.colbase + ct + j * p.ct) * stride4 + c4];
+        // each sum takes x, y, z, w in turn; the 16 sums interleave
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sacc[i][j] = fmaf(a[i].x, e[j].x, sacc[i][j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sacc[i][j] = fmaf(a[i].y, e[j].y, sacc[i][j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sacc[i][j] = fmaf(a[i].z, e[j].z, sacc[i][j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sacc[i][j] = fmaf(a[i].w, e[j].w, sacc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += sacc[i][j];
+    }
+    if (more) {
+      cp_wait();
+      __syncthreads();  // every thread's copies of the stage have landed
+      convert(nxt);
     }
     __syncthreads();
-    for (int o = warp; o < p; o += kWarps) {
-      const float *u, *v;
-      if (o < b) {
-        u = v = sS + (size_t)o * c;
-      } else if (o < b + b * b) {
-        const int q = o - b;
-        u = sS + (size_t)(q / b) * c;
-        v = sD + (size_t)(q % b) * c;
-      } else {
-        const int q = o - b - b * b, k = q / b, l = q % b;
-        if (k > l) continue;  // the mirror of an upper entry
-        u = sD + (size_t)k * c;
-        v = sD + (size_t)l * c;
+  }
+
+  // the groups' tiles, added pairwise in a fixed tree (group g takes group
+  // g + h in the round of half-width h = 2^l): by a shuffle where the two
+  // share a warp, else through shared memory; then the dist sums
+  float* const red = reinterpret_cast<float*>(smem4);
+  for (int l = 0; (1 << l) < p.groups; ++l) {
+    const int h = 1 << l, pair = g >> (l + 1);
+    const bool take =
+        computes && (g & (2 * h - 1)) == 0 && g + h < p.groups;
+    if (32 % tiles == 0 && h * tiles < 32) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float v =
+            __shfl_down_sync(0xffffffffu, acc[e / 4][e % 4], h * tiles);
+        if (take) acc[e / 4][e % 4] += v;
       }
-      float sum = 0.0f;
-      for (int j = lane; j < c4; j += 32) {
-        const float4 x = reinterpret_cast<const float4*>(u)[j];
-        const float4 y = reinterpret_cast<const float4*>(v)[j];
-        sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) acc[o] += sum;
+      continue;
+    }
+    const int slots = (p.groups + 2 * h - 1) >> (l + 1);
+    if (computes && (g & (2 * h - 1)) == h) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        red[(e * slots + pair) * tiles + tt] = acc[e / 4][e % 4];
+    }
+    __syncthreads();
+    if (take) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        acc[e / 4][e % 4] += red[(e * slots + pair) * tiles + tt];
+    }
+    __syncthreads();
+  }
+  float* const dred = red;
+  if (dist_here) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int s = slot0 + j * step;
+      if (s < p.r && p.ra + s < b) dred[s * p.kt4 + k4] = dacc[j];
     }
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < p; o += kThreads)
-    partial[(int64_t)blockIdx.x * p + o] = acc[o];
-}
-
-// One thread per output folds the partials of nblocks blocks in block order
-// into out = [dist B][dn B][cross B*B][gram B*B], gram mirrored from k <= l
-// and dn taken from its diagonal.
-__global__ void __launch_bounds__(kThreads)
-norms_batched_final(const float* __restrict__ partial, int nblocks, int b,
-                    float* __restrict__ out) {
-  const int p = partial_len(b);
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o < p) {
-    int src = o, dst;
-    if (o < b) {
-      dst = o;
-    } else if (o < b + b * b) {
-      dst = b + o;
-    } else {
-      const int q = o - b - b * b, k = q / b, l = q % b;
-      if (k > l) src = b + b * b + l * b + k;
-      dst = 2 * b + b * b + q;
+  float* const part = partial + (int64_t)blockIdx.x * partial_len(b);
+  if (computes && g == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rt + i * p.rt;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = ct + j * p.ct;
+        if (r < p.r && c < p.c)
+          part[(p.ca + c) * 2 * b + p.ra + r] = acc[i][j];
+      }
     }
-    float s = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < nblocks; ++j) s += partial[(int64_t)j * p + src];
-    out[dst] = s;
-    if (dst >= 2 * b + b * b) {
-      const int q = dst - 2 * b - b * b;
-      if (q / b == q % b) out[b + q / b] = s;
+  }
+  if (dist_here) {
+    const int lane = t & 31;
+    for (int s = t >> 5; s < p.r && p.ra + s < b; s += kWarps) {
+      float v = 0.0f;
+      for (int c4 = lane; c4 < p.kt4; c4 += 32) v += dred[s * p.kt4 + c4];
+      v = warp_sum(v);
+      if (lane == 0) part[2 * b * b + p.ra + s] = v;
     }
   }
 }
@@ -184,22 +503,29 @@ apply_batched(const float* __restrict__ xt, L d,
   }
 }
 
-int blocks_for(int64_t n, int b) {
-  const int64_t chunks = n / chunk_for(b);
-  return (int)(chunks < kBatchedBlocks ? chunks : kBatchedBlocks);
-}
-
 template <typename L>
 int launch_norms_batched(const float* xt, const float* xs, L d, int b,
                          int64_t n, float* partial, float* out,
                          cudaStream_t stream) {
   if (b < 1 || b > kMaxB) return (int)cudaErrorInvalidValue;
-  const size_t smem = norms_smem_bytes(b);
-  const int c = chunk_for(b), g = blocks_for(n, b);
-  norms_batched_partial<L><<<g, kThreads, smem, stream>>>(
-      xt, xs, d, b, n, c, n / c, partial);
-  norms_batched_final<<<(partial_len(b) + kThreads - 1) / kThreads, kThreads,
-                        0, stream>>>(partial, g, b, out);
+  const int gk = grid_k(n, b);
+  norms_batched_tiles<L><<<dim3(gk, panels(b)), kThreads,
+                           norms_smem_bytes(b), stream>>>(xt, xs, d, b, n,
+                                                          partial);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((partial_len(b) + 31) / 32);
+  cfg.blockDim = dim3(kFoldWarps * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, norms_batched_fold, (const float*)partial, gk,
+                         b, out);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -219,23 +545,23 @@ using namespace fedagg;
 
 extern "C" {
 
-// Lets the norms kernel use the shared memory of the largest burst (about
-// 193 KB at B = kMaxB, past the 48 KB default). Called once, when the
-// library is loaded, so that no launch makes this call (a launch may be
-// captured in a CUDA graph).
+// Lets the norms kernel use the shared memory of its largest panel (about
+// 70 KB, past the 48 KB default). Called once, when the library is loaded,
+// so that no launch makes this call (a launch may be captured in a CUDA
+// graph).
 int fedagg_batched_init(void) {
   size_t most = 0;
   for (int b = 1; b <= kMaxB; ++b)
     most = norms_smem_bytes(b) > most ? norms_smem_bytes(b) : most;
   cudaError_t err = cudaFuncSetAttribute(
-      norms_batched_partial<F32Delta>,
+      norms_batched_tiles<F32Delta>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(norms_batched_partial<BF16Delta>,
+    err = cudaFuncSetAttribute(norms_batched_tiles<BF16Delta>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)most);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(norms_batched_partial<I8Delta>,
+    err = cudaFuncSetAttribute(norms_batched_tiles<I8Delta>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)most);
   return (int)err;
@@ -244,9 +570,10 @@ int fedagg_batched_init(void) {
 // Largest B the batched kernels take.
 int fedagg_batched_max_b(void) { return kMaxB; }
 
-// Floats of partials the norms-batched scratch must hold for (n, B).
+// Floats of partials the norms-batched scratch must hold for (n, B): one
+// per product entry and dist, per K-range.
 int64_t fedagg_norms_batched_scratch(int64_t n, int b) {
-  return (int64_t)blocks_for(n, b) * partial_len(b);
+  return (int64_t)grid_k(n, b) * partial_len(b);
 }
 
 // n is a multiple of 65536, 1 <= B <= kMaxB, and every pointer is 16-byte

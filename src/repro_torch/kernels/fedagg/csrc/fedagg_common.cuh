@@ -10,7 +10,11 @@
 //               scale of their 1024-element block, each product rounded as
 //               the plain version's `q.float() * s` rounds it.
 // row(b, n) gives the loader of row b of a (B, n) stack of deltas, so one
-// kernel template serves the single and the batched sweeps.
+// kernel template serves the single and the batched sweeps. A kernel that
+// copies a delta's raw bytes itself (cp.async) takes them from raw(i),
+// kRawBytes per group, and for the int8 form the scale from scale(i), and
+// turns them into f32 with widen, as the loader's call does (bf16 and
+// int8 forms).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,7 +31,11 @@ __device__ __forceinline__ float4 load_f32(const float* p, int64_t i) {
 }
 
 struct F32Delta {
+  static constexpr int kRawBytes = 16;
   const float* p;
+  __device__ __forceinline__ const void* raw(int64_t i) const {
+    return p + 4 * i;
+  }
   __device__ __forceinline__ float4 operator()(int64_t i) const {
     return load_f32(p, i);
   }
@@ -37,13 +45,19 @@ struct F32Delta {
 };
 
 struct BF16Delta {
+  static constexpr int kRawBytes = 8;
   const uint16_t* p;
-  __device__ __forceinline__ float4 operator()(int64_t i) const {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + i);
+  __device__ __forceinline__ const void* raw(int64_t i) const {
+    return p + 4 * i;
+  }
+  static __device__ __forceinline__ float4 widen(uint2 u) {
     return make_float4(__uint_as_float(u.x << 16),
                        __uint_as_float(u.x & 0xffff0000u),
                        __uint_as_float(u.y << 16),
                        __uint_as_float(u.y & 0xffff0000u));
+  }
+  __device__ __forceinline__ float4 operator()(int64_t i) const {
+    return widen(__ldg(reinterpret_cast<const uint2*>(p) + i));
   }
   __device__ __forceinline__ BF16Delta row(int b, int64_t n) const {
     return {p + b * n};
@@ -51,13 +65,23 @@ struct BF16Delta {
 };
 
 struct I8Delta {
+  static constexpr int kRawBytes = 4;
   const int8_t* q;
   const float* s;  // one scale per kQBlock elements
-  __device__ __forceinline__ float4 operator()(int64_t i) const {
-    const char4 v = __ldg(reinterpret_cast<const char4*>(q) + i);
-    const float sc = __ldg(s + (i * 4) / kQBlock);
+  __device__ __forceinline__ const void* raw(int64_t i) const {
+    return q + 4 * i;
+  }
+  __device__ __forceinline__ const float* scale(int64_t i) const {
+    return s + (i * 4) / kQBlock;
+  }
+  // four int8 values, each times the scale, as the plain version rounds
+  static __device__ __forceinline__ float4 widen(char4 v, float sc) {
     return make_float4(__fmul_rn((float)v.x, sc), __fmul_rn((float)v.y, sc),
                        __fmul_rn((float)v.z, sc), __fmul_rn((float)v.w, sc));
+  }
+  __device__ __forceinline__ float4 operator()(int64_t i) const {
+    return widen(__ldg(reinterpret_cast<const char4*>(q) + i),
+                 __ldg(scale(i)));
   }
   __device__ __forceinline__ I8Delta row(int b, int64_t n) const {
     return {q + b * n, s + b * (n / kQBlock)};

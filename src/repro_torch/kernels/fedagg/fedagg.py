@@ -22,8 +22,12 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 ``sm_90a`` at first use, both at once) or raises; on a CPU tensor it runs its
 plain PyTorch version beside it (``*_plain``). Nothing falls back from one to
 the other. Each wrapper adds one to ``<wrapper>.launches`` per call that
-launches its kernel. The norms wrappers are one kernel in two CUDA launches
-(per-block partials, then the fixed-order fold), counted once per call.
+launches its kernel. The single norms sweeps (``fedagg_norms``,
+``fedagg_norms_q``, ``fedagg_fused``) are one CUDA launch each: the block that
+draws the last ticket of a per-device integer counter folds the per-block
+partials in a fixed order. The batched norms are a split-K product in one
+launch and a fixed-order fold of its partials in a second, programmatic-
+dependent one, counted once per call.
 
 The batched pair takes f32 and bf16 deltas; its int8 twins are the same
 kernel templates with the int8 loader.
@@ -67,6 +71,39 @@ def batched_b_max(delta_bytes: int = 4) -> int:
     controller clamps to it, so ``"auto"`` window traces depend on it."""
     per_elem = _VMEM_BUDGET_BYTES // (BLOCK_ROWS * LANES)
     return int((per_elem - 4) // (4 + delta_bytes))
+
+
+def _delta_work(n: int, delta_bytes: int) -> Tuple[int, int]:
+    """(bytes, flops) of one delta of n elements with ``delta_bytes`` per
+    element: its wire bytes, and for the int8 form (1 byte) an f32 scale
+    per ``QBLOCK`` elements and one dequantizing multiply per element."""
+    if delta_bytes not in (4, 2, 1):
+        raise ValueError(f"a delta element takes 4, 2 or 1 bytes, not "
+                         f"{delta_bytes}")
+    if delta_bytes == 1:
+        return n + 4 * (n // QBLOCK), n
+    return delta_bytes * n, 0
+
+
+def norms_work(n: int, delta_bytes: int = 4) -> Tuple[int, int]:
+    """(bytes, flops) the norms sweep must move and do over n elements with
+    a delta of ``delta_bytes`` per element (4 f32, 2 bf16, 1 int8 wire
+    form): x_t, x_stale and the delta read once; per element a subtraction
+    and two multiply-adds, for ||x_t - x_stale||^2 and ||delta||^2. 12 bytes
+    and 5 flops per f32 element."""
+    dbytes, dflops = _delta_work(n, delta_bytes)
+    return 8 * n + dbytes, 5 * n + dflops
+
+
+def norms_batched_work(b: int, n: int,
+                       delta_bytes: int = 4) -> Tuple[int, int]:
+    """(bytes, flops) the batched norms must move and do for a burst of B
+    over n elements: x_t, the B stales and the B deltas read once; per
+    element B drifts (one flop each), B squared drifts, B^2 cross terms and
+    the B(B+1)/2 Gram terms of one triangle (two flops each): 4(B+1) + 4B
+    bytes and 3B^2 + 4B flops per f32 element."""
+    dbytes, dflops = _delta_work(n, delta_bytes)
+    return 4 * (b + 1) * n + b * dbytes, (3 * b * b + 4 * b) * n + b * dflops
 
 
 # ------------------------------------------------------------ plain versions --
@@ -215,14 +252,14 @@ def load_libraries() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
     build.build_all(SOURCES)
     lib, blib = build.load(SOURCE), build.load(BATCHED_SOURCE)
     _bind(lib, ("fedagg_norms_f32", "fedagg_norms_bf16"),
-          [_VP, _VP, _VP, _VP, _VP, _I64, _VP])
-    _bind(lib, ("fedagg_norms_int8",), [_VP, _VP, _VP, _VP, _VP, _VP, _I64,
-                                        _VP])
+          [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _VP])
+    _bind(lib, ("fedagg_norms_int8",), [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                        _I64, _VP])
     _bind(lib, ("fedagg_axpy_f32", "fedagg_axpy_bf16"),
           [_VP, _VP, _VP, _VP, _I64, _VP])
     _bind(lib, ("fedagg_axpy_int8",), [_VP, _VP, _VP, _VP, _VP, _I64, _VP])
     _bind(lib, ("fedagg_fused_f32", "fedagg_fused_bf16"),
-          [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _VP])
+          [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _VP])
     _bind(lib, ("fedagg_norms_blocks",), [_I64])
     _bind(lib, ("fedagg_error_string",), [_INT], ctypes.c_char_p)
     _bind(blib, ("fedagg_norms_batched_f32", "fedagg_norms_batched_bf16"),
@@ -251,10 +288,28 @@ def _raise_on(err: int, what: str) -> None:
                            f"{lib.fedagg_error_string(err).decode()}")
 
 
-def _norms_buffer(lib: ctypes.CDLL, x_t: torch.Tensor) -> torch.Tensor:
-    """out (2,) followed by the per-block partials, one allocation."""
-    return torch.empty(2 + 2 * lib.fedagg_norms_blocks(x_t.shape[0]),
-                       dtype=torch.float32, device=x_t.device)
+def _norms_buffer(lib: ctypes.CDLL, x_t: torch.Tensor):
+    """(out (2,) followed by the per-block partials, in one allocation;
+    the device's ticket) for a single norms sweep over x_t."""
+    buf = torch.empty(2 + 2 * lib.fedagg_norms_blocks(x_t.shape[0]),
+                      dtype=torch.float32, device=x_t.device)
+    return buf, _ticket(x_t.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The single norms sweeps' ticket on ``device``: one int32, zeroed here
+    once and left at 0 by every sweep (the block that draws the last ticket
+    folds the partials and resets it), so that a CUDA graph may replay a
+    sweep. The sweeps of a device share it, so they must run one after
+    another: the server issues every sweep on ``build.stream(device)``, one
+    stream. Made outside graph capture, by an eager first call."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the norms sweeps' ticket is made by a first "
+                           "call outside CUDA graph capture")
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    torch.cuda.current_stream(device).synchronize()
+    return ticket
 
 
 # ---------------------------------------------------------------- wrappers --
@@ -267,24 +322,26 @@ def fedagg_norms(x_t: torch.Tensor, x_stale: torch.Tensor,
 
     Replaces the JAX package's ``kernels/fedagg/fedagg.py::fedagg_norms``
     (``_norms_kernel``). Bound by device memory: it reads 12 bytes per
-    element (8 + 2 for a bf16 delta) and does 5 flops on them. The kernel
-    streams 16-byte loads in a grid-stride loop, sums in registers, reduces
-    each block with warp shuffles and writes one partial per block; a
-    second one-block launch folds the partials in a fixed order, so the
-    result is the same to the bit on every run (no float atomics). Its
-    launch count goes up by one per call, for both launches.
+    element (8 + 2 for a bf16 delta) and does 5 flops on them
+    (:func:`norms_work`). The kernel streams 16-byte loads in a grid-stride
+    loop, sums in registers, reduces each block with warp shuffles and
+    writes one partial per block; in the same launch the block that draws
+    the last ticket of the device's integer counter (:func:`_ticket`)
+    folds the partials in a fixed order and resets the ticket. A call is
+    one launch, and the result is the same to the bit on every run (no
+    float atomics).
     """
     _check_inputs(x_t, [("x_stale", x_stale, _F32),
                         ("delta", delta, _DELTA_DTYPES)])
     if x_t.device.type == "cpu":
         return norms_plain(x_t, x_stale, delta)
     lib = load_libraries()[0]
-    buf = _norms_buffer(lib, x_t)
+    buf, ticket = _norms_buffer(lib, x_t)
     fn = (lib.fedagg_norms_f32 if delta.dtype == torch.float32
           else lib.fedagg_norms_bf16)
     err = fn(x_t.data_ptr(), x_stale.data_ptr(), delta.data_ptr(),
-             buf.data_ptr() + 8, buf.data_ptr(), x_t.shape[0],
-             build.stream(x_t.device))
+             buf.data_ptr() + 8, ticket.data_ptr(), buf.data_ptr(),
+             x_t.shape[0], build.stream(x_t.device))
     _raise_on(err, "fedagg_norms")
     fedagg_norms.launches += 1
     return buf[:2]
@@ -335,7 +392,8 @@ def fedagg_fused(x_t: torch.Tensor, x_stale: torch.Tensor,
     :func:`fedagg_norms` kernel that also writes the AXPY: the sums are the
     same code in the same order and the output rounds as
     :func:`fedagg_axpy`'s, so both outputs equal those two wrappers' to the
-    bit. One call is one launch (the sweep, then the fixed-order fold).
+    bit. One call is one CUDA launch: the sweep and, in its last block, the
+    fixed-order fold.
     """
     _check_inputs(x_t, [("x_stale", x_stale, _F32),
                         ("delta", delta, _DELTA_DTYPES)])
@@ -344,13 +402,14 @@ def fedagg_fused(x_t: torch.Tensor, x_stale: torch.Tensor,
         return fused_plain(x_t, x_stale, delta, eta)
     lib = load_libraries()[0]
     eta = eta.reshape(1).contiguous()
-    buf = _norms_buffer(lib, x_t)
+    buf, ticket = _norms_buffer(lib, x_t)
     out = torch.empty_like(x_t)
     fn = (lib.fedagg_fused_f32 if delta.dtype == torch.float32
           else lib.fedagg_fused_bf16)
     err = fn(x_t.data_ptr(), x_stale.data_ptr(), delta.data_ptr(),
              eta.data_ptr(), out.data_ptr(), buf.data_ptr() + 8,
-             buf.data_ptr(), x_t.shape[0], build.stream(x_t.device))
+             ticket.data_ptr(), buf.data_ptr(), x_t.shape[0],
+             build.stream(x_t.device))
     _raise_on(err, "fedagg_fused")
     fedagg_fused.launches += 1
     return out, buf[:2]
@@ -368,7 +427,8 @@ def fedagg_norms_q(x_t: torch.Tensor, x_stale: torch.Tensor, q: torch.Tensor,
     (x_t, x_stale, one byte of q, a scale per 1024 elements). It is the
     :func:`fedagg_norms` kernel with the int8 loader: four q values in one
     4-byte load, each times its block's scale in registers, so the f32
-    delta never exists in device memory.
+    delta never exists in device memory; one launch, as
+    :func:`fedagg_norms`.
     """
     n = x_t.shape[0] if isinstance(x_t, torch.Tensor) and x_t.dim() else 0
     _check_inputs(x_t, [("x_stale", x_stale, _F32),
@@ -377,11 +437,11 @@ def fedagg_norms_q(x_t: torch.Tensor, x_stale: torch.Tensor, q: torch.Tensor,
     if x_t.device.type == "cpu":
         return norms_q_plain(x_t, x_stale, q, scales)
     lib = load_libraries()[0]
-    buf = _norms_buffer(lib, x_t)
+    buf, ticket = _norms_buffer(lib, x_t)
     err = lib.fedagg_norms_int8(x_t.data_ptr(), x_stale.data_ptr(),
                                 q.data_ptr(), scales.data_ptr(),
-                                buf.data_ptr() + 8, buf.data_ptr(), n,
-                                build.stream(x_t.device))
+                                buf.data_ptr() + 8, ticket.data_ptr(),
+                                buf.data_ptr(), n, build.stream(x_t.device))
     _raise_on(err, "fedagg_norms_q")
     fedagg_norms_q.launches += 1
     return buf[:2]
@@ -471,13 +531,16 @@ def fedagg_norms_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
     Replaces the JAX package's
     ``kernels/fedagg/fedagg.py::fedagg_norms_batched``
     (``_norms_batched_kernel``). Bound by device memory: 4(2B+1) bytes per
-    element against about 4B^2 flops, 7.9 flop/byte at B = 15, under the
-    f32 ridge. Too many sums for one thread's registers, so each block
-    stages a chunk of the drifts and deltas in shared memory, its warps
-    each own a fixed set of the dot products (gram's k <= l half only) and
-    add each chunk's sum to an accumulator in shared memory; a second
-    launch folds the blocks' partials in a fixed order. Bitwise repeatable,
-    no float atomics, no TF32.
+    element against 3B^2 + 4B flops (:func:`norms_batched_work`), 8.9
+    flop/byte at B = 23, under the f32 ridge. The kernel is a split-K
+    product [S; D] D^T (S the B drifts): each block takes a contiguous
+    range of the n elements and a panel of at most 64 x 64 outputs,
+    stages its rows in double-buffered shared memory with the next stage's
+    loads in flight, and each thread accumulates a 4 x 4 register tile
+    over its range with no per-stage reduction; dist is summed by the
+    threads that stage the drifts. A second, programmatic-dependent launch
+    folds the blocks' partials, a warp per output in a fixed order.
+    Bitwise repeatable, no float atomics, no TF32.
     """
     return split_batched(norms_batched_packed(x_t, x_stales, deltas),
                          deltas.shape[0])
@@ -525,11 +588,12 @@ def fedagg_norms_batched_q(x_t: torch.Tensor, x_stales: torch.Tensor,
     Replaces the JAX package's
     ``kernels/fedagg/fedagg.py::fedagg_norms_batched_q``
     (``_norms_batched_q_kernel``). Bound by device memory: 4(B+1) + B bytes
-    per element (x_t, the B stales, one byte of each q) against about 4B^2
-    flops. It is the :func:`fedagg_norms_batched` kernel with the int8
-    loader: each staged delta is dequantized in registers on its way into
-    shared memory, so the f32 deltas never exist in device memory, and the
-    fold is the same fixed-order one (bitwise repeatable).
+    per element (x_t, the B stales, one byte of each q) against 3B^2 + 5B
+    flops (:func:`norms_batched_work`). It is the
+    :func:`fedagg_norms_batched` kernel with the int8 loader: each stage's
+    int8 bytes and scales are copied into shared memory and dequantized
+    there, so the f32 deltas never exist in device memory, and the fold is
+    the same fixed-order one (bitwise repeatable).
     """
     return split_batched(norms_batched_packed(x_t, x_stales, qs, scales),
                          qs.shape[0])

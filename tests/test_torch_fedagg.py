@@ -267,3 +267,25 @@ class TestBuild:
             pytest.skip("a CUDA toolkit is installed")
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.nvcc()
+
+
+class TestNormsWork:
+    """fedagg.norms_work, which chip_smoke.py's bound of the single norms
+    sweeps reads, against counts by hand."""
+
+    @pytest.mark.parametrize("n", [BLOCK, 4 * BLOCK, 1 << 28])
+    def test_f32_is_12_bytes_and_5_flops_per_element(self, n):
+        # x_t, x_stale and delta read once, 4 bytes each; x_t - x_stale,
+        # its square and the running sum, the delta's square and its sum
+        assert fedagg.norms_work(n) == (12 * n, 5 * n)
+
+    def test_bf16_and_int8_deltas(self):
+        n = 2 * BLOCK
+        assert fedagg.norms_work(n, 2) == (10 * n, 5 * n)
+        # one byte of q, an f32 scale per 1024 elements, the dequantizing
+        # multiply
+        assert fedagg.norms_work(n, 1) == (9 * n + 4 * (n // 1024), 6 * n)
+
+    def test_rejects_other_delta_widths(self):
+        with pytest.raises(ValueError, match="bytes"):
+            fedagg.norms_work(BLOCK, 8)

@@ -326,3 +326,25 @@ class TestInt8AgainstPallas:
         # dequantized deltas, to the bit
         assert torch.equal(got, fedagg.apply_batched_plain(
             tx, torch.from_numpy(dequant(jq, js)), torch.from_numpy(etas)))
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 23, 24, 128])
+@pytest.mark.parametrize("delta_bytes", [4, 2, 1], ids=["f32", "bf16",
+                                                        "int8"])
+def test_norms_batched_work_counts_the_outputs(b, delta_bytes):
+    """fedagg.norms_batched_work, which chip_smoke.py's bound of the batched
+    norms reads, against a count of its outputs: per element the B drifts
+    (a subtraction each), the B squared drifts and B x B cross terms (a
+    multiply and an add each), the Gram terms k <= l (the same), and with
+    int8 deltas one dequantizing multiply per delta; x_t and the B stales
+    read in f32, the deltas in their wire form (int8: an f32 scale per
+    1024 elements). 4(B+1) + 4B bytes and 3B^2 + 4B flops per f32
+    element."""
+    n = 2 * BLOCK
+    gram = sum(1 for k in range(b) for l in range(b) if k <= l)
+    flops = b + 2 * b + 2 * b * b + 2 * gram + (b if delta_bytes == 1 else 0)
+    scales = 4 * b * (n // 1024) if delta_bytes == 1 else 0
+    assert fedagg.norms_batched_work(b, n, delta_bytes) == (
+        4 * (b + 1) * n + delta_bytes * b * n + scales, flops * n)
+    if delta_bytes == 4:
+        assert flops == 3 * b * b + 4 * b

@@ -312,3 +312,84 @@ def test_server_paths_on_cuda_match_cpu(mode):
                                [r.gamma for r in cpu.history], rtol=1e-5)
     torch.testing.assert_close(gpu._flat.vec.cpu(), cpu._flat.vec,
                                rtol=1e-5, atol=1e-6)
+
+
+def _batched_wire(b, n, delta, seed):
+    """(x, xs, deltas, scales) for the batched norms at (B, n): f32 or bf16
+    deltas with scales None, or int8 wire rows (one all-zero scale block
+    each) with their scales."""
+    x, xs, d = batched_inputs(b, n, torch.float32, seed=seed)
+    if delta == "int8":
+        d[:, :fedagg.QBLOCK] = 0.0
+        wires = [compression.quantize_vec(row, "int8", n) for row in d]
+        return (x, xs, torch.stack([w.q for w in wires]),
+                torch.stack([w.scales for w in wires]))
+    return x, xs, d.to(getattr(torch, delta)), None
+
+
+@requires_cuda
+@pytest.mark.parametrize("delta", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n", [BLOCK, 16 * BLOCK], ids=["65536", "2^20"])
+@pytest.mark.parametrize("b", [1, 2, 23, 24, 64, 128])
+def test_batched_norms_split_k(b, n, delta):
+    """The split-K batched norms (and their int8 twin) against their plain
+    versions at one panel (B <= 32), at two row panels (B = 64) and at
+    eight (B = 128), to the file's batched tolerances; bitwise repeatable;
+    dn equal to gram's diagonal and gram symmetric, to the bit."""
+    x, xs, d, sc = _batched_wire(b, n, delta, seed=b + n)
+    if sc is None:
+        got = fedagg.fedagg_norms_batched(x, xs, d)
+        want = fedagg.norms_batched_plain(x, xs, d)
+        again = fedagg.fedagg_norms_batched(x, xs, d)
+    else:
+        got = fedagg.fedagg_norms_batched_q(x, xs, d, sc)
+        want = fedagg.norms_batched_q_plain(x, xs, d, sc)
+        again = fedagg.fedagg_norms_batched_q(x, xs, d, sc)
+    assert_batched_norms_close(got, want)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert torch.equal(got[3], got[3].T)
+    assert torch.equal(got[1], torch.diagonal(got[3]))
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [BLOCK, 13 * BLOCK], ids=["65536", "851968"])
+def test_single_norms_replay_in_a_graph(n):
+    """fedagg_norms, fedagg_norms_q and fedagg_fused captured in one CUDA
+    graph and replayed three times: every replay equals the eager calls to
+    the bit, so the sweeps' shared ticket is back at 0 after each sweep; the
+    fused sweep's norms equal fedagg_norms' to the bit; each call is one
+    CUDA launch (torch.profiler's kernel events)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, xs, d = inputs(n, torch.float32, seed=5)
+    q, s = quantized(n, seed=6)
+    eta = torch.tensor(0.37, device="cuda")
+    calls = lambda: (fedagg.fedagg_norms(x, xs, d),
+                     fedagg.fedagg_norms_q(x, xs, q, s),
+                     *fedagg.fedagg_fused(x, xs, d, eta))
+    eager = [t.clone() for t in calls()]
+    assert torch.equal(eager[3], eager[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3 and all("norms_sweep" in k for k in kernels)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    fedagg.reset_launches()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert (fedagg.fedagg_norms.launches, fedagg.fedagg_norms_q.launches,
+            fedagg.fedagg_fused.launches) == (1, 1, 1)
+    for _ in range(3):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(captured, eager))
+    assert all(torch.equal(a, e) for a, e in zip(calls(), eager))
