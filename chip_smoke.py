@@ -31,11 +31,14 @@ JAX package.
 DIR holds against that design, after the path runs: the SSD and RG-LRU
 scans from ``DIR/ssd.cu`` and ``DIR/rglru.cu`` as commit 2b85a6a holds them
 (``git show 2b85a6a:src/repro_torch/kernels/ssd/csrc/ssd.cu > DIR/ssd.cu``,
-likewise ``rglru/csrc/rglru.cu``), the single and batched norms sweeps from
-``DIR/fedagg.cu`` and ``DIR/fedagg_batched.cu`` as commit 33d513a holds
-them, with that commit's ``fedagg_common.cuh`` beside them (``git show
-33d513a:src/repro_torch/kernels/fedagg/csrc/fedagg.cu > DIR/fedagg.cu``,
-likewise the other two). Put DIR under the git-ignored ``build/``.
+likewise ``rglru/csrc/rglru.cu``); the batched applies from
+``DIR/fedagg_batched.cu`` as commit 6468138 holds it, with that commit's
+``fedagg_common.cuh`` beside it (``git show
+6468138:src/repro_torch/kernels/fedagg/csrc/fedagg_batched.cu >
+DIR/fedagg_batched.cu``, likewise the header and ``fedagg.cu``), and from
+the same files the batched and single norms sweeps, which that commit
+holds as they are now: those rows are a control of the turns' spread. Put
+DIR under the git-ignored ``build/``.
 """
 from __future__ import annotations
 
@@ -510,11 +513,10 @@ def batched_errors(got, want):
 def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
     """fedagg_norms_batched and fedagg_apply_batched at (B, n) with a
     ``dtype`` delta, each against its plain version, timed; returns the two
-    rows. Work counted: the norms read x_t, B stales and B deltas and do
-    3B^2 + 4B flops per element (B drifts, B squared drifts, B^2 cross
-    terms, the B(B+1)/2 Gram terms of one triangle, a multiply and an add
-    each); the apply reads x_t and B deltas, writes one vector, and does 2B
-    flops per element."""
+    rows. Work counted by ``fedagg.norms_batched_work`` (x_t, B stales and
+    B deltas read; 3B^2 + 4B flops per element) and
+    ``fedagg.apply_batched_work`` (x_t and B deltas read, one vector
+    written; 2B flops per element)."""
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(seed)
     dbytes = 4 if dtype == torch.float32 else 2
@@ -556,7 +558,7 @@ def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
     out = fedagg.fedagg_apply_batched(x, d, etas)
     diff = float((out - fedagg.apply_batched_plain(x, d, etas)).abs().max())
     check(diff == 0.0, f"apply_batched {tag}: max abs err {diff}")
-    nbytes = 8 * n + dbytes * b * n
+    nbytes, flops = fedagg.apply_batched_work(b, n, dbytes)
     k = timings(lambda: fedagg.fedagg_apply_batched(x, d, etas), reps)
     plain = timings(lambda: fedagg.apply_batched_plain(x, d, etas), reps)
     lib = (timings(lambda: torch.addmv(x, d.t(), etas), reps)
@@ -564,7 +566,7 @@ def batched_rows(torch, fedagg, b: int, n: int, dtype, seed: int = 0):
     rot = k["device"] if big else rotated_ms(
         lambda a, b_, c: fedagg.fedagg_apply_batched(a, c, etas), make,
         nbytes)
-    bms, by = bound_ms(nbytes, 2 * b * n)
+    bms, by = bound_ms(nbytes, flops)
     apply = {"phase": "kernel", "name": "fedagg_apply_batched", **tag,
              "max_abs_err": diff, "ms": k["device"], "ms_rotated": rot,
              "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
@@ -582,7 +584,7 @@ def batched_q_rows(torch, fedagg, compression, b: int, n: int,
     """fedagg_norms_batched_q and fedagg_apply_batched_q at (B, n), each
     against its plain version, timed; returns the two rows. Work counted as
     in :func:`batched_rows`, with one byte of q per delta element, a scale
-    per 1024 and one more flop (the dequantizing multiply)."""
+    per 1024 and one more flop per delta (the dequantizing multiply)."""
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -599,7 +601,6 @@ def batched_q_rows(torch, fedagg, compression, b: int, n: int,
     big = n > (1 << 20)
     reps = 5 if big else 20
     tag = {"B": b, "n": n, "delta": "int8"}
-    qbytes = b * n + 4 * b * (n // fedagg.QBLOCK)
 
     got = fedagg.fedagg_norms_batched_q(x, xs, qs, sc)
     rtol = BATCHED_RTOL[n]
@@ -629,14 +630,14 @@ def batched_q_rows(torch, fedagg, compression, b: int, n: int,
     diff = float((out - fedagg.apply_batched_q_plain(x, qs, sc, etas)
                   ).abs().max())
     check(diff == 0.0, f"apply_batched_q {tag}: max abs err {diff}")
-    nbytes = 8 * n + qbytes
+    nbytes, flops = fedagg.apply_batched_work(b, n, 1)
     k = timings(lambda: fedagg.fedagg_apply_batched_q(x, qs, sc, etas), reps)
     plain = timings(lambda: fedagg.apply_batched_q_plain(x, qs, sc, etas),
                     reps)
     rot = k["device"] if big else rotated_ms(
         lambda a, b_, c, e: fedagg.fedagg_apply_batched_q(a, c, e, etas),
         make, nbytes)
-    bms, by = bound_ms(nbytes, 3 * b * n)
+    bms, by = bound_ms(nbytes, flops)
     apply = {"phase": "kernel", "name": "fedagg_apply_batched_q", **tag,
              "max_abs_err": diff, "ms": k["device"], "ms_rotated": rot,
              "plain_ms": plain["device"], "bound_ms": bms, "bound_by": by,
@@ -1046,8 +1047,9 @@ def previous_rglru(torch, build, mods, rg_lib, rows, burst) -> None:
 
 
 def previous_norms(torch, build, mods, lib, rows, burst) -> None:
-    """The single norms sweeps against their two-launch design
-    (``DIR/fedagg.cu``, commit 33d513a's) at ``PREVIOUS_NORMS_SIZES``:
+    """The single norms sweeps against the one-launch design in
+    ``DIR/fedagg.cu`` (commit 6468138's, which this source still holds: the
+    rows are a control of the turns' spread) at ``PREVIOUS_NORMS_SIZES``:
     fedagg_norms (f32 and bf16 deltas), fedagg_norms_q and fedagg_fused's
     norms must equal it to the bit; fedagg_norms with f32 deltas is timed
     against it in ``PREVIOUS_TURNS`` turns."""
@@ -1055,13 +1057,14 @@ def previous_norms(torch, build, mods, lib, rows, burst) -> None:
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     fedagg, compression = mods["fedagg"], mods["compression"]
     for name in ("fedagg_norms_f32", "fedagg_norms_bf16"):
-        getattr(lib, name).argtypes = [vp] * 5 + [i64, vp]
-    lib.fedagg_norms_int8.argtypes = [vp] * 6 + [i64, vp]
-    lib.fedagg_fused_f32.argtypes = [vp] * 7 + [i64, vp]
+        getattr(lib, name).argtypes = [vp] * 6 + [i64, vp]
+    lib.fedagg_norms_int8.argtypes = [vp] * 7 + [i64, vp]
+    lib.fedagg_fused_f32.argtypes = [vp] * 8 + [i64, vp]
     lib.fedagg_norms_blocks.argtypes = [i64]
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(9)
     eta = torch.full((), 0.37, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
     for n in PREVIOUS_NORMS_SIZES:
         x = torch.randn(n, device=dev, generator=g)
         xs = x + 0.01 * torch.randn(n, device=dev, generator=g)
@@ -1069,11 +1072,10 @@ def previous_norms(torch, build, mods, lib, rows, burst) -> None:
         db = d.bfloat16()
         cd = compression.quantize_vec(d, "int8", n)
 
-        def old(fn, *ptrs, axpy_out=None):
+        def old(fn, *ptrs):
             buf = torch.empty(2 + 2 * lib.fedagg_norms_blocks(n), device=dev)
-            tail = (buf.data_ptr() + 8, buf.data_ptr(), n, build.stream(dev))
-            err = (fn(*ptrs, axpy_out.data_ptr(), *tail) if axpy_out
-                   is not None else fn(*ptrs, *tail))
+            err = fn(*ptrs, buf.data_ptr() + 8, ticket.data_ptr(),
+                     buf.data_ptr(), n, build.stream(dev))
             check(err == 0, f"the previous norms sweep failed: {err}")
             return buf[:2]
         ptrs = (x.data_ptr(), xs.data_ptr())
@@ -1091,7 +1093,7 @@ def previous_norms(torch, build, mods, lib, rows, burst) -> None:
             "fused": torch.equal(fedagg.fedagg_fused(x, xs, d, eta)[1],
                                  old(lib.fedagg_fused_f32, *ptrs,
                                      d.data_ptr(), eta.data_ptr(),
-                                     axpy_out=fused_out))}
+                                     fused_out.data_ptr()))}
         check(all(equal.values()),
               f"norms n={n} not bitwise equal to the previous design: "
               f"{equal}")
@@ -1106,16 +1108,17 @@ def previous_norms(torch, build, mods, lib, rows, burst) -> None:
               "ms": k["device"], "previous_ms": prev_t["device"],
               "ratio": k["ratio"], "previous_spread": prev_t["spread"],
               "turns": PREVIOUS_TURNS, "bound_ms": bms, "bound_by": by,
-              "launches_per_call": 1, "previous_launches_per_call": 2,
               "bitwise_equal_previous": equal})
         del x, xs, d
         torch.cuda.empty_cache()
 
 
 def previous_norms_batched(torch, build, mods, lib, rows, burst) -> None:
-    """fedagg_norms_batched and fedagg_norms_batched_q against their
-    warp-per-dot design (``DIR/fedagg_batched.cu``, commit 33d513a's) at the
-    path's median burst ``burst`` (n = 65,536, f32 deltas) and at every
+    """fedagg_norms_batched and fedagg_norms_batched_q against the design in
+    ``DIR/fedagg_batched.cu`` (commit 6468138's holds the current split-K
+    design: the rows are a control of the turns' spread; commit 33d513a's
+    the warp-per-dot one it replaced) at the path's median burst ``burst``
+    (n = 65,536, f32 deltas) and at every
     (B, n, delta) of the kernel rows (``BATCHED`` with f32 and bf16 deltas,
     ``BATCHED_Q`` with int8 ones, ``BATCHED_BIG`` with f32 and int8): both
     within ``BATCHED_RTOL`` of each other (as of the plain version), times
@@ -1194,10 +1197,112 @@ def previous_norms_batched(torch, build, mods, lib, rows, burst) -> None:
         torch.cuda.empty_cache()
 
 
+def previous_apply_batched(torch, build, mods, lib, rows, burst) -> None:
+    """fedagg_apply_batched and fedagg_apply_batched_q against the design in
+    ``DIR/fedagg_batched.cu`` (commit 6468138's: a grid-stride loop, one
+    float4 a thread, the B rows loaded one after another) at the path's
+    median bursts (n = 65,536: f32 deltas at ``burst``, int8 at the B of the
+    main-path row in ``rows``) and at every (B, n, delta) of the kernel
+    rows (``BATCHED`` with f32 and bf16 deltas, ``BATCHED_Q`` with int8
+    ones, ``BATCHED_BIG`` with f32 and int8), with etas that hold a zero and
+    negative values: the two must agree to the bit. Times in
+    ``PREVIOUS_TURNS`` turns twice: on resident inputs (``ms``; at the paper
+    lengths from L2, as the server calls the apply) and on inputs cycled
+    through ``ROTATE_BYTES`` of copies (``ms_cold``; the same as ``ms``
+    where one set outgrows half of that), which must not come out below the
+    bound (``fedagg.apply_batched_work``): L2 serves resident inputs faster
+    than device memory, so the bound does not hold for those."""
+    import ctypes
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fedagg, compression = mods["fedagg"], mods["compression"]
+    for name in ("fedagg_apply_batched_f32", "fedagg_apply_batched_bf16"):
+        getattr(lib, name).argtypes = [vp, vp, vp, i, i64, vp, vp]
+    lib.fedagg_apply_batched_int8.argtypes = [vp, vp, vp, vp, i, i64, vp, vp]
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(12)
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+
+    def new(x, d, sc, etas):
+        if sc is None:
+            return fedagg.fedagg_apply_batched(x, d, etas)
+        return fedagg.fedagg_apply_batched_q(x, d, sc, etas)
+
+    def old(x, d, sc, etas):
+        out = torch.empty_like(x)
+        tail = (etas.data_ptr(), d.shape[0], x.shape[0], out.data_ptr(),
+                build.stream(dev))
+        if sc is not None:
+            err = lib.fedagg_apply_batched_int8(x.data_ptr(), d.data_ptr(),
+                                                sc.data_ptr(), *tail)
+        else:
+            fn = (lib.fedagg_apply_batched_f32 if d.dtype == f32
+                  else lib.fedagg_apply_batched_bf16)
+            err = fn(x.data_ptr(), d.data_ptr(), *tail)
+        check(err == 0, f"the previous apply_batched failed: {err}")
+        return out
+
+    shapes = ([(burst, 65536, f32),
+               (rows["fedagg_apply_batched_q"]["B"], 65536, i8)]
+              + [(b, n, dt) for b, n in BATCHED for dt in (f32, bf16)]
+              + [(*BATCHED_BIG, f32)]
+              + [(b, n, i8) for b, n in BATCHED_Q + [BATCHED_BIG]])
+    for b, n, dt in shapes:
+        x = torch.randn(n, device=dev, generator=g)
+        d = 0.05 * torch.randn(b, n, device=dev, generator=g)
+        etas = torch.linspace(-0.5, 0.9, b, device=dev)
+        etas[b // 2] = 0.0
+        sc = None
+        if dt == i8:
+            d[:, :fedagg.QBLOCK] = 0.0
+            wires = [compression.quantize_vec(row, "int8", n) for row in d]
+            d = torch.stack([w.q for w in wires])
+            sc = torch.stack([w.scales for w in wires])
+            del wires
+        else:
+            d = d.to(dt)
+        args = (x, d, sc, etas)
+        tag = {"B": b, "n": n, "delta": str(dt).replace("torch.", "")}
+        equal = torch.equal(new(*args), old(*args))
+        check(equal, f"apply_batched {tag} not bitwise equal to the previous "
+              "design")
+        dbytes = {f32: 4, bf16: 2, i8: 1}[dt]
+        nbytes, flops = fedagg.apply_batched_work(b, n, dbytes)
+        reps = 5 if n > (1 << 20) else 20
+        k, prev_t = turns(lambda: new(*args), lambda: old(*args), reps,
+                          PREVIOUS_TURNS)
+        cold, prev_cold = k, prev_t
+        if nbytes <= ROTATE_BYTES // 2:
+            sets = [tuple(a.clone() if a is not None else None for a in args)
+                    for _ in range(-(-ROTATE_BYTES // nbytes))]
+            it_new, it_old = itertools.cycle(sets), itertools.cycle(sets)
+            cold, prev_cold = turns(lambda: new(*next(it_new)),
+                                    lambda: old(*next(it_old)), len(sets),
+                                    PREVIOUS_TURNS)
+            del sets, it_new, it_old
+        bms, by = bound_ms(nbytes, flops)
+        check(min(cold["device"], prev_cold["device"]) >= bms,
+              f"apply_batched {tag} timed below its bound: {cold}, previous "
+              f"{prev_cold}")
+        emit({"phase": "previous_design",
+              "name": ("fedagg_apply_batched_q" if sc is not None
+                       else "fedagg_apply_batched"), **tag,
+              "ms": k["device"], "previous_ms": prev_t["device"],
+              "ratio": k["ratio"], "previous_spread": prev_t["spread"],
+              "ms_cold": cold["device"],
+              "previous_ms_cold": prev_cold["device"],
+              "ratio_cold": cold["ratio"],
+              "previous_spread_cold": prev_cold["spread"],
+              "turns": PREVIOUS_TURNS, "bound_ms": bms, "bound_by": by,
+              "bitwise_equal_previous": equal})
+        del x, d, sc, etas, args
+        torch.cuda.empty_cache()
+
+
 #: the previous designs ``--previous DIR`` can time, by source file name
-PREVIOUS = {"ssd.cu": previous_ssd, "rglru.cu": previous_rglru,
-            "fedagg.cu": previous_norms,
-            "fedagg_batched.cu": previous_norms_batched}
+PREVIOUS = {"ssd.cu": (previous_ssd,), "rglru.cu": (previous_rglru,),
+            "fedagg.cu": (previous_norms,),
+            "fedagg_batched.cu": (previous_norms_batched,
+                                  previous_apply_batched)}
 
 
 def phase_previous(torch, build, mods: dict, prev: Path, rows: dict,
@@ -1212,8 +1317,8 @@ def phase_previous(torch, build, mods: dict, prev: Path, rows: dict,
     check(bool(names), f"--previous {prev} holds none of {list(PREVIOUS)}")
     build.build_all([prev / name for name in names])
     for name in names:
-        PREVIOUS[name](torch, build, mods, build.load(prev / name), rows,
-                       burst)
+        for compare in PREVIOUS[name]:
+            compare(torch, build, mods, build.load(prev / name), rows, burst)
 
 
 def expected_launches(kinds, gen_len: int) -> dict:
@@ -1575,7 +1680,7 @@ def main(argv) -> int:
                     help="time each kernel whose previous design DIR holds "
                          "(ssd.cu, rglru.cu: commit 2b85a6a's; fedagg.cu, "
                          "fedagg_batched.cu with fedagg_common.cuh: commit "
-                         "33d513a's) in turns with that design")
+                         "6468138's) in turns with that design")
     args = ap.parse_args(argv)
     try:
         import torch

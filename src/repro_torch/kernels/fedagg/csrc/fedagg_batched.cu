@@ -60,13 +60,28 @@
 // bit on every run. No tensor cores and no TF32: the contractions stay in
 // f32, as the schedule needs.
 //
-// apply_batched: out = x_t + sum_b eta_b D_b. It reads 4(B+1) bytes per
-// element and writes 4, for 2B+1 flops: device memory bounds it. It streams
-// the B delta rows in a grid-stride loop with the etas in shared memory, and
-// sums in a fixed order with every multiply and add rounded on its own
-// (acc = eta_0 D_0, acc = acc + eta_b D_b for b = 1..B-1, out = x_t + acc),
-// exactly as the plain version's loop, so the two agree to the bit. It
-// writes a new vector: the ring GMIS keeps every past one.
+// apply_batched: out = x_t + sum_b eta_b D_b. It reads x_t and the B deltas
+// once and writes the new vector, 4(B + 2) bytes per f32 element (2B + 8
+// with bf16 deltas, B + 8 and a scale per 1024 with int8 ones), for 2B
+// flops (3B with int8; fedagg.py::apply_batched_work): device memory bounds
+// it at model lengths; at the paper's lengths the inputs sit in L2 and the
+// launch and the loads' latency set the time (PERF.md). A thread owns one
+// slice of every row. It issues x_t's load, then every row load of a
+// register chunk (8 rows of 16 bytes, 16 of 8, 32 of 4; 8 rows for B <= 8)
+// before it sums them, and the next chunk's loads before that sum, so it
+// waits about one round trip per chunk, not one per row. Blocks of 64
+// threads; the grid is set by (n, B) and the delta form: 16 bytes of a row
+// a thread where that still gives 528 blocks (4 per SM, the model-scale
+// lengths), else one float4 group (16 bytes of f32, 8 of bf16, 4 of int8)
+// or, for int8 bursts of at most 16, 8 bytes: fewer, wider threads pay
+// while each dequantizes few values.
+// An int8 byte becomes its float by a byte permute and a subtract (exact,
+// no conversion instruction), and a block reads its B etas and B scales
+// once into shared memory. Every element sums in the plain version's order,
+// every multiply and add rounded on its own (acc = eta_0 D_0, acc = acc +
+// eta_b D_b for b = 1..B-1, out = x_t + acc; an int8 value's q s rounded
+// first), so the two agree to the bit whatever the grid. It writes a new
+// vector: the ring GMIS keeps every past one.
 //
 // Plain C interface for ctypes. Every entry point launches on the stream it
 // is given, does not synchronise, and returns cudaGetLastError().
@@ -86,6 +101,11 @@ constexpr int kMaxKT4 = 128;        // float4 columns of a stage at most
 constexpr int kMaxGroups = 16;      // thread groups splitting a stage
 constexpr int kMaxRawBytes = 8;     // raw bytes of a delta's float4 group
 constexpr int kFoldWarps = 16;      // warps of a fold block
+constexpr int kApplyThreads = 64;   // threads of an apply block
+constexpr int kApplyChunkBytes = 128;  // raw bytes a thread holds per chunk
+constexpr int kApplyShortRows = 8;     // rows per chunk for B <= 8
+constexpr int kApplyWideBlocks = 528;  // 16-byte rows from 4 blocks per SM
+constexpr int kApplyMaxProducts = 128;  // int8 values a narrow thread widens
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -474,33 +494,107 @@ norms_batched_tiles(const float* __restrict__ xt,
   }
 }
 
-template <typename L>
-__global__ void __launch_bounds__(kThreads)
+// Loads kBytes (16, 8 or 4) raw bytes at p into 32-bit words, in one load.
+template <int kBytes>
+__device__ __forceinline__ void load_words(const void* p, uint32_t* w) {
+  if constexpr (kBytes == 16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = u.x;
+    w[1] = u.y;
+    w[2] = u.z;
+    w[3] = u.w;
+  } else if constexpr (kBytes == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    static_assert(kBytes == 4, "a thread loads 16, 8 or 4 bytes a row");
+    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  }
+}
+
+// A thread's slice of kChunk delta rows in registers: kBytes raw bytes of
+// each, as 32-bit words.
+template <typename L, int kBytes, int kChunk>
+struct ApplyRows {
+  uint32_t w[kChunk][kBytes / 4];
+
+  // rows r0 .. r0 + kChunk - 1 (those below b) at this thread's byte offset
+  __device__ __forceinline__ void load(const L& d, int r0, int b, int64_t n,
+                                       int64_t t) {
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (r0 + j < b)
+        load_words<kBytes>(
+            static_cast<const char*>(d.row(r0 + j, n).raw(0)) + t * kBytes,
+            w[j]);
+    }
+  }
+};
+
+// out = x_t + sum_b eta_b D_b. Thread t of the grid owns kBytes raw bytes
+// of each delta row (kBytes / kRawBytes float4 groups): it loads its x_t
+// first, then the rows in register chunks of kChunk, the next chunk's loads
+// issued before the current chunk's chain. An int8 block's elements lie in
+// one scale block, so the block stages the B etas and, for the int8 form,
+// the B scales of its block in shared memory. Per element the chain is the
+// plain version's: acc = -0 + eta_0 D_0 (an exact eta_0 D_0: adding -0
+// changes no float), acc = acc + eta_b D_b for b = 1..B-1, out = x_t + acc,
+// every multiply and add rounded on its own.
+template <typename L, int kBytes, int kChunk>
+__global__ void __launch_bounds__(kApplyThreads)
 apply_batched(const float* __restrict__ xt, L d,
               const float* __restrict__ etas, int b, int64_t n,
               float* __restrict__ out) {
-  __shared__ float se[kMaxB];
-  for (int r = threadIdx.x; r < b; r += kThreads) se[r] = __ldg(etas + r);
-  __syncthreads();
-  const int64_t n4 = n / 4, stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += stride) {
-    float4 v = d(i);
-    float4 acc = make_float4(__fmul_rn(se[0], v.x), __fmul_rn(se[0], v.y),
-                             __fmul_rn(se[0], v.z), __fmul_rn(se[0], v.w));
-    for (int r = 1; r < b; ++r) {
-      const float e = se[r];
-      v = d.row(r, n)(i);
-      acc.x = __fadd_rn(acc.x, __fmul_rn(e, v.x));
-      acc.y = __fadd_rn(acc.y, __fmul_rn(e, v.y));
-      acc.z = __fadd_rn(acc.z, __fmul_rn(e, v.z));
-      acc.w = __fadd_rn(acc.w, __fmul_rn(e, v.w));
-    }
-    const float4 x = load_f32(xt, i);
-    reinterpret_cast<float4*>(out)[i] =
-        make_float4(__fadd_rn(x.x, acc.x), __fadd_rn(x.y, acc.y),
-                    __fadd_rn(x.z, acc.z), __fadd_rn(x.w, acc.w));
+  constexpr int kGroups = kBytes / L::kRawBytes;
+  constexpr int kWords = L::kRawBytes / 4;
+  static_assert(L::kElemBytes != 1 || kApplyThreads * kBytes <= kQBlock,
+                "an int8 block spans one scale block");
+  __shared__ float se[kMaxB], ss[kMaxB];
+  // thread t of the grid; t0 is the first of its block
+  const int64_t t0 = (int64_t)blockIdx.x * kApplyThreads, t = t0 + threadIdx.x;
+  const int64_t g0 = t * kGroups;  // first float4 group of this thread
+  float4 x[kGroups];
+#pragma unroll
+  for (int k = 0; k < kGroups; ++k) x[k] = load_f32(xt, g0 + k);
+  ApplyRows<L, kBytes, kChunk> cur;
+  cur.load(d, 0, b, n, t);
+  for (int r = threadIdx.x; r < b; r += kApplyThreads) {
+    se[r] = __ldg(etas + r);
+    if constexpr (L::kElemBytes == 1)
+      ss[r] = __ldg(d.row(r, n).scale(t0 * kGroups));
   }
+  __syncthreads();
+  float4 acc[kGroups];
+#pragma unroll
+  for (int k = 0; k < kGroups; ++k)
+    acc[k] = make_float4(-0.0f, -0.0f, -0.0f, -0.0f);
+  for (int c = 0; c < b; c += kChunk) {
+    ApplyRows<L, kBytes, kChunk> nxt;
+    if (c + kChunk < b) nxt.load(d, c + kChunk, b, n, t);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (c + j < b) {
+        const float e = se[c + j];
+        const float s = L::kElemBytes == 1 ? ss[c + j] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          const float4 v = L::widen_words(cur.w[j] + k * kWords, s);
+          acc[k].x = __fadd_rn(acc[k].x, __fmul_rn(e, v.x));
+          acc[k].y = __fadd_rn(acc[k].y, __fmul_rn(e, v.y));
+          acc[k].z = __fadd_rn(acc[k].z, __fmul_rn(e, v.z));
+          acc[k].w = __fadd_rn(acc[k].w, __fmul_rn(e, v.w));
+        }
+      }
+    }
+    cur = nxt;
+  }
+  float4* const o = reinterpret_cast<float4*>(out) + g0;
+#pragma unroll
+  for (int k = 0; k < kGroups; ++k)
+    o[k] = make_float4(
+        __fadd_rn(x[k].x, acc[k].x), __fadd_rn(x[k].y, acc[k].y),
+        __fadd_rn(x[k].z, acc[k].z), __fadd_rn(x[k].w, acc[k].w));
 }
 
 template <typename L>
@@ -529,13 +623,43 @@ int launch_norms_batched(const float* xt, const float* xs, L d, int b,
   return (int)cudaGetLastError();
 }
 
+// One thread per kBytes of a delta row (n is a multiple of 65,536, so the
+// grid covers it exactly), in chunks of kApplyChunkBytes of raw rows, or of
+// kApplyShortRows rows for a burst no longer than that.
+template <int kBytes, typename L>
+int launch_apply_width(const float* xt, L d, const float* etas, int b,
+                       int64_t n, float* out, cudaStream_t stream) {
+  constexpr int kRows = kApplyChunkBytes / kBytes;
+  const int64_t per_block = (int64_t)kApplyThreads * kBytes / L::kElemBytes;
+  if (b < 1 || b > kMaxB || n % per_block != 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(n / per_block);
+  if constexpr (kRows > kApplyShortRows) {
+    if (b <= kApplyShortRows) {
+      apply_batched<L, kBytes, kApplyShortRows>
+          <<<grid, kApplyThreads, 0, stream>>>(xt, d, etas, b, n, out);
+      return (int)cudaGetLastError();
+    }
+  }
+  apply_batched<L, kBytes, kRows><<<grid, kApplyThreads, 0, stream>>>(
+      xt, d, etas, b, n, out);
+  return (int)cudaGetLastError();
+}
+
+// The row bytes a thread owns, set by (n, B) and the delta form: 16 where
+// that still gives the grid kApplyWideBlocks blocks; below that, one float4
+// group (16 bytes of f32, 8 of bf16, 4 of int8), or 8 bytes of int8 while a
+// thread dequantizes no more than kApplyMaxProducts values (B <= 16).
 template <typename L>
 int launch_apply_batched(const float* xt, L d, const float* etas, int b,
                          int64_t n, float* out, cudaStream_t stream) {
-  if (b < 1 || b > kMaxB) return (int)cudaErrorInvalidValue;
-  apply_batched<L><<<grid_for(n / 4), kThreads, 0, stream>>>(xt, d, etas, b,
-                                                            n, out);
-  return (int)cudaGetLastError();
+  if (n * L::kElemBytes / (16 * kApplyThreads) >= kApplyWideBlocks)
+    return launch_apply_width<16>(xt, d, etas, b, n, out, stream);
+  if constexpr (L::kElemBytes == 1) {
+    if (8 * b <= kApplyMaxProducts)
+      return launch_apply_width<8>(xt, d, etas, b, n, out, stream);
+  }
+  return launch_apply_width<L::kRawBytes>(xt, d, etas, b, n, out, stream);
 }
 
 }  // namespace
@@ -608,25 +732,24 @@ int fedagg_norms_batched_int8(const void* xt, const void* xs, const void* q,
 
 int fedagg_apply_batched_f32(const void* xt, const void* d, const void* etas,
                              int b, int64_t n, void* out, void* stream) {
-  return launch_apply_batched((const float*)xt, F32Delta{(const float*)d},
-                              (const float*)etas, b, n, (float*)out,
-                              (cudaStream_t)stream);
+  return launch_apply_batched(
+      (const float*)xt, F32Delta{(const float*)d}, (const float*)etas, b, n,
+      (float*)out, (cudaStream_t)stream);
 }
 
 int fedagg_apply_batched_bf16(const void* xt, const void* d, const void* etas,
                               int b, int64_t n, void* out, void* stream) {
-  return launch_apply_batched((const float*)xt, BF16Delta{(const uint16_t*)d},
-                              (const float*)etas, b, n, (float*)out,
-                              (cudaStream_t)stream);
+  return launch_apply_batched(
+      (const float*)xt, BF16Delta{(const uint16_t*)d}, (const float*)etas, b,
+      n, (float*)out, (cudaStream_t)stream);
 }
 
 int fedagg_apply_batched_int8(const void* xt, const void* q, const void* s,
                               const void* etas, int b, int64_t n, void* out,
                               void* stream) {
-  return launch_apply_batched((const float*)xt,
-                              I8Delta{(const int8_t*)q, (const float*)s},
-                              (const float*)etas, b, n, (float*)out,
-                              (cudaStream_t)stream);
+  return launch_apply_batched(
+      (const float*)xt, I8Delta{(const int8_t*)q, (const float*)s},
+      (const float*)etas, b, n, (float*)out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

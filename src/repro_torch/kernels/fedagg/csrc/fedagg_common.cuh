@@ -11,10 +11,11 @@
 //               the plain version's `q.float() * s` rounds it.
 // row(b, n) gives the loader of row b of a (B, n) stack of deltas, so one
 // kernel template serves the single and the batched sweeps. A kernel that
-// copies a delta's raw bytes itself (cp.async) takes them from raw(i),
-// kRawBytes per group, and for the int8 form the scale from scale(i), and
-// turns them into f32 with widen, as the loader's call does (bf16 and
-// int8 forms).
+// loads a delta's raw bytes itself (cp.async, or wider loads into
+// registers) takes them from raw(i), kRawBytes per group (kElemBytes per
+// element), and for the int8 form the scale from scale(i), and turns them
+// into f32 with widen (bf16 and int8 forms) or, from 32-bit words,
+// widen_words, as the loader's call does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,10 +32,15 @@ __device__ __forceinline__ float4 load_f32(const float* p, int64_t i) {
 }
 
 struct F32Delta {
-  static constexpr int kRawBytes = 16;
+  static constexpr int kRawBytes = 16, kElemBytes = 4;
   const float* p;
   __device__ __forceinline__ const void* raw(int64_t i) const {
     return p + 4 * i;
+  }
+  static __device__ __forceinline__ float4 widen_words(const uint32_t* w,
+                                                      float) {
+    return make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
+                       __uint_as_float(w[2]), __uint_as_float(w[3]));
   }
   __device__ __forceinline__ float4 operator()(int64_t i) const {
     return load_f32(p, i);
@@ -45,7 +51,7 @@ struct F32Delta {
 };
 
 struct BF16Delta {
-  static constexpr int kRawBytes = 8;
+  static constexpr int kRawBytes = 8, kElemBytes = 2;
   const uint16_t* p;
   __device__ __forceinline__ const void* raw(int64_t i) const {
     return p + 4 * i;
@@ -56,6 +62,10 @@ struct BF16Delta {
                        __uint_as_float(u.y << 16),
                        __uint_as_float(u.y & 0xffff0000u));
   }
+  static __device__ __forceinline__ float4 widen_words(const uint32_t* w,
+                                                      float) {
+    return widen(make_uint2(w[0], w[1]));
+  }
   __device__ __forceinline__ float4 operator()(int64_t i) const {
     return widen(__ldg(reinterpret_cast<const uint2*>(p) + i));
   }
@@ -65,7 +75,7 @@ struct BF16Delta {
 };
 
 struct I8Delta {
-  static constexpr int kRawBytes = 4;
+  static constexpr int kRawBytes = 4, kElemBytes = 1;
   const int8_t* q;
   const float* s;  // one scale per kQBlock elements
   __device__ __forceinline__ const void* raw(int64_t i) const {
@@ -78,6 +88,25 @@ struct I8Delta {
   static __device__ __forceinline__ float4 widen(char4 v, float sc) {
     return make_float4(__fmul_rn((float)v.x, sc), __fmul_rn((float)v.y, sc),
                        __fmul_rn((float)v.z, sc), __fmul_rn((float)v.w, sc));
+  }
+  // the same from the four bytes of one 32-bit word, lowest first, without
+  // a conversion instruction: byte k, biased to q + 128, becomes the low
+  // byte of the float 2^23 + q + 128, from which subtracting 2^23 + 128
+  // leaves q exactly, as (float)q gives it
+  static __device__ __forceinline__ float4 widen_words(const uint32_t* w,
+                                                      float sc) {
+    const uint32_t u = w[0] ^ 0x80808080u;
+    const float bias = 8388736.0f;  // 2^23 + 128
+    const float q0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                           0x7540)), bias);
+    const float q1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                           0x7541)), bias);
+    const float q2 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                           0x7542)), bias);
+    const float q3 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u,
+                                                           0x7543)), bias);
+    return make_float4(__fmul_rn(q0, sc), __fmul_rn(q1, sc),
+                       __fmul_rn(q2, sc), __fmul_rn(q3, sc));
   }
   __device__ __forceinline__ float4 operator()(int64_t i) const {
     return widen(__ldg(reinterpret_cast<const char4*>(q) + i),

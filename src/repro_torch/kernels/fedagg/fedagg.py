@@ -106,6 +106,17 @@ def norms_batched_work(b: int, n: int,
     return 4 * (b + 1) * n + b * dbytes, (3 * b * b + 4 * b) * n + b * dflops
 
 
+def apply_batched_work(b: int, n: int,
+                       delta_bytes: int = 4) -> Tuple[int, int]:
+    """(bytes, flops) the batched apply must move and do for a burst of B
+    over n elements: x_t and the B deltas read once, the new vector written;
+    per element B multiplies by an eta and B adds (B - 1 into the sum, one
+    onto x_t), and with int8 deltas one dequantizing multiply per delta:
+    4(B + 2) bytes and 2B flops per f32 element."""
+    dbytes, dflops = _delta_work(n, delta_bytes)
+    return 8 * n + b * dbytes, 2 * b * n + b * dflops
+
+
 # ------------------------------------------------------------ plain versions --
 
 def norms_plain(x_t: torch.Tensor, x_stale: torch.Tensor,
@@ -553,11 +564,16 @@ def fedagg_apply_batched(x_t: torch.Tensor, deltas: torch.Tensor,
 
     Replaces the JAX package's
     ``kernels/fedagg/fedagg.py::fedagg_apply_batched``
-    (``_apply_batched_kernel``). Bound by device memory: it reads 4(B+1)
-    bytes per element and writes 4, for 2B+1 flops. The kernel streams the
-    B delta rows in a grid-stride loop and sums in the plain version's
-    order, each multiply and add rounded on its own, so the two agree to
-    the bit.
+    (``_apply_batched_kernel``). Bound by device memory at model lengths: it
+    reads 4(B+1) bytes per f32 element (2B + 4 with bf16 deltas) and writes
+    4, for 2B flops (:func:`apply_batched_work`); at the paper's lengths,
+    from L2, by the launch and the loads' latency. A kernel thread owns one
+    slice of every delta row, 16 bytes at model lengths and one float4
+    group at the paper's, and puts a register chunk's row loads (8 rows of
+    f32, 16 of bf16) in flight, x_t's first, before it sums them, the next
+    chunk's loads during the sum. It sums in the plain version's order,
+    each multiply and add rounded on its own, so the two agree to the bit.
+    One launch per call.
     """
     b = deltas.shape[0] if isinstance(deltas, torch.Tensor) else 0
     _check_batch(b)
@@ -608,11 +624,16 @@ def fedagg_apply_batched_q(x_t: torch.Tensor, qs: torch.Tensor,
 
     Replaces the JAX package's
     ``kernels/fedagg/fedagg.py::fedagg_apply_batched_q``
-    (``_apply_batched_q_kernel``). Bound by device memory: B + 4 bytes per
-    element read and 4 written, for 3B + 1 flops. It is the
-    :func:`fedagg_apply_batched` kernel with the int8 loader; the
-    dequantizing multiply and every multiply and add of the fixed-order sum
-    round on their own, so it equals its plain version to the bit.
+    (``_apply_batched_q_kernel``). Bound by device memory at model lengths:
+    B + 4 bytes per element read (and a scale per ``QBLOCK``) and 4
+    written, for 3B flops (:func:`apply_batched_work`). It is the
+    :func:`fedagg_apply_batched` kernel with the int8 loader: a thread owns
+    16 bytes of each row at model lengths and, at the paper's, 8 (4 for
+    bursts past 16, so that more threads share the dequantizing); a block
+    reads its B scales once into shared memory, and a byte becomes its
+    float by a byte permute and an exact subtract. The dequantizing
+    multiply and every multiply and add of the fixed-order sum round on
+    their own, so it equals its plain version to the bit.
     """
     b = qs.shape[0] if isinstance(qs, torch.Tensor) else 0
     _check_batch(b)

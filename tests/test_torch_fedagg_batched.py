@@ -348,3 +348,29 @@ def test_norms_batched_work_counts_the_outputs(b, delta_bytes):
         4 * (b + 1) * n + delta_bytes * b * n + scales, flops * n)
     if delta_bytes == 4:
         assert flops == 3 * b * b + 4 * b
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 23, 24, 128])
+@pytest.mark.parametrize("delta_bytes", [4, 2, 1], ids=["f32", "bf16",
+                                                        "int8"])
+def test_apply_batched_work_counts_the_chain(b, delta_bytes):
+    """fedagg.apply_batched_work, which chip_smoke.py's bound of the batched
+    applies reads, against a count of the sum the plain version takes: per
+    element B multiplies by an eta, B - 1 adds into the sum and one onto
+    x_t, and with int8 deltas one dequantizing multiply per delta; x_t read
+    and the new vector written in f32, the deltas read in their wire form
+    (int8: an f32 scale per 1024 elements). 4(B + 2) bytes and 2B flops per
+    f32 element."""
+    n = 2 * BLOCK
+    flops = b + (b - 1) + 1 + (b if delta_bytes == 1 else 0)
+    scales = 4 * b * (n // 1024) if delta_bytes == 1 else 0
+    assert fedagg.apply_batched_work(b, n, delta_bytes) == (
+        4 * n + delta_bytes * b * n + scales + 4 * n, flops * n)
+    if delta_bytes == 4:
+        assert fedagg.apply_batched_work(b, n) == (4 * (b + 2) * n,
+                                                   2 * b * n)
+
+
+def test_apply_batched_work_rejects_other_widths():
+    with pytest.raises(ValueError, match="4, 2 or 1 bytes"):
+        fedagg.apply_batched_work(2, BLOCK, 8)

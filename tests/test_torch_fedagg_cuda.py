@@ -393,3 +393,118 @@ def test_single_norms_replay_in_a_graph(n):
         torch.cuda.synchronize()
         assert all(torch.equal(a, e) for a, e in zip(captured, eager))
     assert all(torch.equal(a, e) for a, e in zip(calls(), eager))
+
+
+def _apply_inputs(b, n, delta, seed):
+    """(x, deltas, scales, etas) for the batched apply at (B, n): f32 or
+    bf16 deltas with scales None, or int8 wire rows with an all-zero scale
+    block each; etas from -0.5 to 0.9 with one set to zero."""
+    x, _, d = batched_inputs(b, n, torch.float32, seed=seed)
+    etas = torch.linspace(-0.5, 0.9, b, device="cuda")
+    etas[b // 2] = 0.0
+    if delta == "int8":
+        d[:, :fedagg.QBLOCK] = 0.0
+        wires = [compression.quantize_vec(row, "int8", n) for row in d]
+        return (x, torch.stack([w.q for w in wires]),
+                torch.stack([w.scales for w in wires]), etas)
+    return x, d.to(getattr(torch, delta)), None, etas
+
+
+def _apply(x, d, sc, etas):
+    if sc is None:
+        return fedagg.fedagg_apply_batched(x, d, etas)
+    return fedagg.fedagg_apply_batched_q(x, d, sc, etas)
+
+
+def _apply_plain(x, d, sc, etas):
+    if sc is None:
+        return fedagg.apply_batched_plain(x, d, etas)
+    return fedagg.apply_batched_q_plain(x, d, sc, etas)
+
+
+def _captured_node_types(fn):
+    """``fn()`` captured in a CUDA graph: the type of each node of the graph
+    as libcuda reports it (cuGraphGetNodes, cuGraphNodeGetType; 0 is a
+    kernel), which counts launches without a profiler's trace, and the
+    output after one replay."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    graph.replay()
+    torch.cuda.synchronize()
+    return types, out
+
+
+@requires_cuda
+@pytest.mark.parametrize("delta", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n", [BLOCK, 3 * BLOCK, 16 * BLOCK],
+                         ids=["65536", "196608", "2^20"])
+@pytest.mark.parametrize("b", [1, 2, 7, 8, 9, 16, 17, 23, 24, 128])
+def test_apply_batched_equals_plain(b, n, delta):
+    """The batched apply (and its int8 twin) equals its plain version to the
+    bit: B across the register chunks' remainders, the int8 widths' switch
+    (B 16 to 17) and the largest burst; n at the paper lengths and at 2^20,
+    where a thread takes 16 bytes of every delta form; etas with a zero and
+    negative entries, int8 rows with an all-zero block. A call is counted
+    once, writes a new tensor and, captured in a CUDA graph, is one kernel
+    node, whose replay gives the same bits."""
+    x, d, sc, etas = _apply_inputs(b, n, delta, seed=b + n)
+    fedagg.reset_launches()
+    out = _apply(x, d, sc, etas)
+    assert (fedagg.fedagg_apply_batched.launches
+            + fedagg.fedagg_apply_batched_q.launches) == 1
+    assert out.data_ptr() != x.data_ptr()
+    assert torch.equal(out, _apply_plain(x, d, sc, etas))
+    types, replayed = _captured_node_types(lambda: _apply(x, d, sc, etas))
+    assert types == [0]
+    assert torch.equal(replayed, out)
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [BLOCK, 16 * BLOCK], ids=["65536", "2^20"])
+def test_apply_batched_replays_in_a_graph(n):
+    """The f32, bf16 and int8 batched applies captured in one CUDA graph and
+    replayed three times: every replay equals the eager calls to the bit;
+    each call is one kernel event under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    inputs = [_apply_inputs(b, n, delta, seed=7)
+              for b, delta in ((23, "float32"), (8, "bfloat16"),
+                               (24, "int8"))]
+    calls = lambda: [_apply(*args) for args in inputs]
+    eager = calls()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3 and all("apply_batched" in k for k in kernels)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(3):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(captured, eager))
+    assert all(torch.equal(e, _apply_plain(*args))
+               for e, args in zip(eager, inputs))
