@@ -18,7 +18,13 @@ recurrentgemma-2b at full width and depth (every RG-LRU prefill through the
 scan kernel, every attention decode step through the decode kernel) and
 mamba2-1.3b at full width and depth (every SSD prefill through the SSD scan
 kernel), and holds the card's logits against the CPU port's at full width
-for both. ``fedagg_fused``, which no path of either package calls, is held
+for both. Then it runs the baselines on synthetic-1-1 (``comparison``:
+the quickstart's asyncfeded, fedavg and fedasync+constant, then
+fedasync+poly and +hinge, fedbuff, fedprox, asyncfeded-perleaf and
+-displacement; only the flat-state run may launch fedagg kernels) and two
+attacked runs (``attack``: sign-flip with norm screening through the burst
+drain, gaussian noise on int8 deltas), each against its CPU run from the
+same init. ``fedagg_fused``, which no path of either package calls, is held
 to the bit against ``fedagg_axpy`` and ``fedagg_norms``. The line of its
 standard output before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
@@ -105,6 +111,24 @@ PATHS = [("synthetic-burst", "synthetic-burst", dict(client_engine="loop"),
           dict(backend="pallas", delta_compression="int8"), 10.0, 40, True),
          ("femnist-int8", "femnist",
           dict(backend="pallas", delta_compression="int8"), 10.0, 30, False)]
+#: the comparison phase on synthetic-1-1, window 0: the quickstart's three
+#: algorithms (Fig. 2 in miniature), then the other baselines and AsyncFedED
+#: variants: (algorithm, backend or None for the task's, update or round
+#: cap). Only the flat-state run launches fedagg kernels.
+COMPARISON = [("asyncfeded", "pallas", 40), ("fedavg", None, 40),
+              ("fedasync+constant", None, 40), ("fedasync+poly", None, 20),
+              ("fedasync+hinge", None, 20), ("fedbuff", None, 20),
+              ("fedprox", None, 20), ("asyncfeded-perleaf", None, 20),
+              ("asyncfeded-displacement", None, 20)]
+#: the attack phase: (label, scenario or task, FedConfig changes, virtual
+#: seconds, update cap). The burst run's sign-flipped deltas reach the
+#: batched drain's screen; the int8 run's noisy wire deltas the int8 sweeps.
+ATTACK_RUNS = [("synthetic-burst-sign-flip", "synthetic-burst",
+                dict(client_engine="loop", attack="sign-flip",
+                     attack_frac=0.2, screen="reject"), 10.0, 80),
+               ("synthetic-1-1-int8-gaussian-noise", "synthetic-1-1",
+                dict(backend="pallas", delta_compression="int8",
+                     attack="gaussian-noise", attack_frac=0.2), 10.0, 40)]
 #: updates of an unmeasured run of each task before its measured one, so
 #: that first-use loading of PyTorch's kernels stays out of the timings
 WARMUP_UPDATES = 3
@@ -1451,30 +1475,33 @@ def _key(history):
 
 
 def run_sim(torch, fedagg, task, fed, max_time: float, max_updates: int,
-            timed: str, compare_cpu: bool):
-    """One measured FederatedSimulation of ``task`` on the card, after an
-    unmeasured run of ``WARMUP_UPDATES`` updates of the same task (so the
-    timings are of a process that has used every kernel before). Every
-    launch count is set to 0 just before the measured run and read just
-    after it. Returns (row, result, drain sizes, launch counts).
+            timed: str, compare_cpu: bool, algorithm: str = "asyncfeded"):
+    """One measured FederatedSimulation of ``task`` with ``algorithm`` on
+    the card, after an unmeasured run of ``WARMUP_UPDATES`` updates of the
+    same task (so the timings are of a process that has used every kernel
+    before). Every launch count is set to 0 just before the measured run
+    and read just after it. Returns (row, result, drain sizes, launch
+    counts, simulation).
 
     The row splits the run's host time into client training, server work
-    (``timed``: ``on_update`` per aggregation or ``on_update_batch`` per
-    drain; either ends in a wait on the device, so it covers the device
-    work) and evaluation. With ``compare_cpu`` the same run on the CPU from
-    the same initial params must give the same event trace."""
+    (``timed``: ``on_update`` per arrival, ``on_update_batch`` per drain or
+    ``round`` per synchronous round; each ends in a wait on the device, so
+    it covers the device work) and evaluation. With ``compare_cpu`` the
+    same run on the CPU from the same initial params must give the same
+    event trace, the same screen verdicts and the same attack stats."""
     from repro_torch.core.simulator import FederatedSimulation
     from repro_torch.utils import pytree as pt
 
-    FederatedSimulation(task, fed, "asyncfeded", seed=1, device="cuda").run(
+    FederatedSimulation(task, fed, algorithm, seed=1, device="cuda").run(
         max_time=max_time, eval_every=5, max_updates=WARMUP_UPDATES)
     torch.cuda.synchronize()
-    sim = FederatedSimulation(task, fed, "asyncfeded", seed=0, device="cuda")
+    sim = FederatedSimulation(task, fed, algorithm, seed=0, device="cuda")
     init = pt.tree_map(lambda t: t.cpu(), sim.server.params)
     sizes, server_s, client_s, eval_s = [], [], [], []
-    drain = sim.server.on_update_batch
-    sim.server.on_update_batch = lambda ups: sizes.append(len(ups)) or drain(
-        ups)
+    if sim.server.is_async:
+        drain = sim.server.on_update_batch
+        sim.server.on_update_batch = (
+            lambda ups: sizes.append(len(ups)) or drain(ups))
     _time_calls(sim.server, timed, server_s)
     _time_calls(sim, "_eval_point", eval_s)
     for c in sim.clients:
@@ -1485,21 +1512,30 @@ def run_sim(torch, fedagg, task, fed, max_time: float, max_updates: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.__name__: k.launches for k in fedagg.KERNELS}
+    per = {"on_update": "aggregation", "on_update_batch": "drain",
+           "round": "round"}[timed]
     row = {"updates": res.total_updates, "aggregations": len(res.history),
            "drains": res.total_drains, "client_rounds": len(client_s),
            "max_accuracy": res.max_accuracy(),
-           "final_accuracy": res.points[-1].accuracy, "wall_s": wall,
-           "client_s": sum(client_s), "server_s": sum(server_s),
-           "eval_s": sum(eval_s),
-           f"server_ms_per_{'aggregation' if timed == 'on_update' else 'drain'}":
+           "final_accuracy": res.points[-1].accuracy,
+           "t90": res.time_to_accuracy(0.9 * res.max_accuracy()),
+           "wall_s": wall, "client_s": sum(client_s),
+           "server_s": sum(server_s), "eval_s": sum(eval_s),
+           f"server_ms_per_{per}":
                1e3 * sum(server_s) / max(len(server_s), 1),
            "server_ms_median": 1e3 * statistics.median(server_s or [0]),
            "launches": counts}
-    check(len(res.history) > 0, f"{task.name}: no aggregation happened")
-    check(bool(torch.isfinite(sim.server._flat.vec).all()),
-          f"{task.name}: non-finite model")
+    if res.screen is not None:
+        row["screen"] = res.screen
+    if res.attack is not None:
+        row["attack"] = res.attack
+    label = f"{task.name} {algorithm}"
+    check(len(res.history) > 0, f"{label}: no aggregation happened")
+    check(all(bool(torch.isfinite(t).all())
+              for t in pt.tree_leaves(sim.server.params)),
+          f"{label}: non-finite model")
     if compare_cpu:
-        cpu = FederatedSimulation(task, fed, "asyncfeded", seed=0,
+        cpu = FederatedSimulation(task, fed, algorithm, seed=0,
                                   device="cpu", init_params=init)
         ref = cpu.run(max_time=max_time, eval_every=5,
                       max_updates=max_updates)
@@ -1512,14 +1548,19 @@ def run_sim(torch, fedagg, task, fed, max_time: float, max_updates: int,
                 "cpu": _key(ref.history)[first],
                 "gamma_cuda": res.history[first].gamma,
                 "gamma_cpu": ref.history[first].gamma}
+        verdicts = ([r.screen for r in res.history]
+                    == [r.screen for r in ref.history])
         acc_gap = abs(res.points[-1].accuracy - ref.points[-1].accuracy)
-        row.update(cpu_history_identical=same, cpu_acc_gap=acc_gap,
-                   acc_atol=ACC_ATOL)
-        if not same:
+        row.update(cpu_history_identical=same, cpu_verdicts_identical=verdicts,
+                   cpu_acc_gap=acc_gap, acc_atol=ACC_ATOL)
+        if not (same and verdicts):
             emit(row)
-        check(same, f"{task.name}: CUDA and CPU event histories differ")
+        check(same, f"{label}: CUDA and CPU event histories differ")
+        check(verdicts, f"{label}: CUDA and CPU screen verdicts differ")
+        check(res.attack == ref.attack,
+              f"{label}: attack stats {res.attack} != CPU {ref.attack}")
         check(acc_gap <= ACC_ATOL,
-              f"{task.name}: CUDA vs CPU accuracy gap {acc_gap}")
+              f"{label}: CUDA vs CPU accuracy gap {acc_gap}")
     return row, res, sizes, counts, sim
 
 
@@ -1623,6 +1664,80 @@ def phase_paths(torch, fedagg, compression, launches: dict) -> dict:
         emit(row)
         _add(launches, counts)
     return bursts
+
+
+def phase_comparison(torch, fedagg, launches: dict) -> None:
+    """``COMPARISON`` on the card, each run against its CPU run from the
+    same init: the flat-state AsyncFedED run launches the single-arrival
+    sweeps once per aggregation and nothing else; every baseline and tree
+    run launches no fedagg kernel, so none quietly takes the kernels or
+    the CPU."""
+    from repro_torch import configs
+
+    task = configs.PAPER_TASKS["synthetic-1-1"]
+    for algorithm, backend, cap in COMPARISON:
+        fed = (task.fed if backend is None
+               else dataclasses.replace(task.fed, backend=backend))
+        sync = algorithm in ("fedavg", "fedprox")
+        row, res, _, counts, sim = run_sim(
+            torch, fedagg, task, fed, 1e9, cap,
+            "round" if sync else "on_update", compare_cpu=True,
+            algorithm=algorithm)
+        flat = getattr(sim.server, "backend", None) == "pallas"
+        aggs = len(res.history)
+        single = ("fedagg_norms", "fedagg_axpy")
+        check(res.total_updates == cap,
+              f"{algorithm}: {res.total_updates} updates, expected {cap}")
+        check(all(v == (aggs if flat and k in single else 0)
+                  for k, v in counts.items()),
+              f"{algorithm}: launches {counts} (flat: {flat}, "
+              f"aggregations {aggs})")
+        emit({"phase": "comparison", "algorithm": algorithm,
+              "backend": getattr(sim.server, "backend", None), **row})
+        _add(launches, counts)
+
+
+def phase_attack(torch, fedagg, launches: dict) -> None:
+    """``ATTACK_RUNS`` on the card, each against its CPU run (trace,
+    verdicts, attack stats). A single arrival launches the sweeps of its
+    wire form unless the screen rejects it; a drain of two or more
+    launches the batched pair once. The burst run must drain a burst
+    through the batched pair and reject at least once."""
+    from repro_torch import configs
+
+    for label, base, change, max_time, cap in ATTACK_RUNS:
+        task = (configs.SCENARIOS[base] if base in configs.SCENARIOS.names()
+                else configs.PAPER_TASKS[base])
+        fed = dataclasses.replace(task.fed, **change)
+        row, res, sizes, counts, _ = run_sim(
+            torch, fedagg, task, fed, max_time, cap, "on_update_batch",
+            compare_cpu=True)
+        singles = multi = i = 0
+        for b in sizes:
+            if b == 1:
+                singles += res.history[i].screen != "reject"
+            else:
+                multi += 1
+            i += b
+        q = "_q" if fed.delta_compression == "int8" else ""
+        check(counts["fedagg_norms" + q] == counts["fedagg_axpy" + q]
+              == singles, f"{label}: single launches {counts} != accepted "
+              f"single arrivals ({singles})")
+        check(counts["fedagg_norms_batched" + q]
+              == counts["fedagg_apply_batched" + q] == multi,
+              f"{label}: batched launches {counts} != drains with B >= 2 "
+              f"({multi})")
+        check(sum(counts.values()) == 2 * (singles + multi),
+              f"{label}: launches of another wire form: {counts}")
+        if base == "synthetic-burst":
+            check(multi > 0, f"{label}: no drain of two or more")
+            check(res.screen["reject"] > 0, f"{label}: nothing rejected")
+        else:
+            check(singles > 0, f"{label}: no single sweep")
+        row.update(phase="attack", run=label, burst_sizes={
+            str(b): sizes.count(b) for b in sorted(set(sizes))})
+        emit(row)
+        _add(launches, counts)
 
 
 def phase_profile(torch) -> None:
@@ -1745,6 +1860,12 @@ def main(argv) -> int:
     for arch in SERVES:
         phase_serve(torch, arch, serve_kernels, launches)
         phase_serve_parity(torch, arch)
+    t0 = time.perf_counter()
+    phase_comparison(torch, fedagg, launches)
+    t1 = time.perf_counter()
+    phase_attack(torch, fedagg, launches)
+    emit({"phase": "phase_seconds", "comparison": t1 - t0,
+          "attack": time.perf_counter() - t1})
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"

@@ -150,3 +150,29 @@ def asyncfeded_aggregate_with_dist(x_t: PyTree, dist: torch.Tensor,
     eta = adaptive_lr(gamma, lam, eps)
     new = pt.tree_axpy(eta, delta, x_t)
     return AggregationResult(new, gamma, eta, dist, dnorm)
+
+
+def asyncfeded_aggregate_per_leaf(x_t: PyTree, x_stale: PyTree,
+                                  delta: PyTree, *, lam: float, eps: float,
+                                  cap: float = 0.0) -> AggregationResult:
+    """Per-leaf staleness: each leaf gets its own Eq.(6) gamma and Eq.(7)
+    eta, so the fresh leaves of an otherwise stale update keep their
+    weight. The returned gamma and eta are parameter-count-weighted means
+    over the leaves; dist and delta_norm are the whole tree's."""
+    news, gammas, etas, sizes = [], [], [], []
+    for x, xs, d in zip(pt.tree_leaves(x_t), pt.tree_leaves(x_stale),
+                        pt.tree_leaves(delta)):
+        dist = torch.sqrt(torch.sum(torch.square(x.float() - xs.float())))
+        dn = torch.sqrt(torch.sum(torch.square(d.float())))
+        g = _gamma(dist, dn, cap)
+        eta = adaptive_lr(g, lam, eps)
+        news.append((x.float() + eta * d.float()).to(x.dtype))
+        gammas.append(g)
+        etas.append(eta)
+        sizes.append(float(x.numel()))
+    new = pt.tree_unflatten(pt.tree_structure(x_t), news)
+    sizes = torch.tensor(sizes, dtype=torch.float32,
+                         device=gammas[0].device)
+    wmean = lambda v: torch.sum(torch.stack(v) * sizes) / torch.sum(sizes)
+    return AggregationResult(new, wmean(gammas), wmean(etas),
+                             pt.tree_dist(x_t, x_stale), pt.tree_norm(delta))

@@ -1,15 +1,15 @@
-"""Server-side protocol: AsyncFedED (Algorithm 1).
+"""Server-side protocol: AsyncFedED (Algorithm 1) and the baselines'
+aggregation rules (FedAsync, FedBuff, synchronous FedAvg/FedProx).
 
 Servers are pure protocol logic — no clocks, no sockets. The discrete-event
 simulator (repro_torch.core.simulator) drives them. The server works on the
 device its initial params lie on.
 
-This slice has the AsyncFedED server with both backends and both GMIS modes,
-compressed (int8 and bf16) deltas, and the flat backend's batched burst
-drain for every wire form. The baseline servers (FedAsync, FedBuff,
-synchronous FedAvg/FedProx), the per-leaf variant and model sharding are
-later slices: :func:`make_server` and the server raise
-``NotImplementedError`` for them.
+The AsyncFedED server has both backends, both GMIS modes and the per-leaf
+variant, compressed (int8 and bf16) deltas, and the flat backend's batched
+burst drain for every wire form. The baselines mix parameter trees in plain
+torch, as the reference does. Model sharding is a later slice: the server
+raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import compression, screening
 from repro_torch.core.adaptive_k import AdaptiveK
 from repro_torch.core.aggregation import (asyncfeded_aggregate,
+                                          asyncfeded_aggregate_per_leaf,
                                           asyncfeded_aggregate_with_dist)
 from repro_torch.core.gmis import DisplacementGMIS, RingGMIS
 from repro_torch.kernels.fedagg import fedagg, ops
@@ -175,9 +176,12 @@ class AsyncFedEDServer(AsyncServer):
     name = "asyncfeded"
 
     def __init__(self, params: PyTree, fed: FedConfig,
-                 gmis_mode: str = "ring", backend: str = "pytree"):
+                 gmis_mode: str = "ring", per_leaf: bool = False,
+                 backend: str = "pytree"):
         if backend not in ("pytree", "pallas"):
             raise ValueError(f"unknown backend {backend!r}")
+        if backend == "pallas" and per_leaf:
+            raise ValueError("per-leaf staleness needs the pytree backend")
         if fed.model_shards > 1:
             raise NotImplementedError(
                 "model-sharded flat state is not ported yet (ROADMAP.md A17)")
@@ -185,6 +189,7 @@ class AsyncFedEDServer(AsyncServer):
         self._flat: Optional[pt.FlatParams] = None
         self._zeros = None
         super().__init__(params, fed)    # routes through the params setter
+        self.per_leaf = per_leaf
         self.gmis_mode = gmis_mode
         if gmis_mode == "ring":
             self.gmis = RingGMIS(depth=fed.gmis_depth)
@@ -238,9 +243,10 @@ class AsyncFedEDServer(AsyncServer):
             self.gmis.release(upd.client_id)
         else:
             stale, _ = self.gmis.get(upd.snapshot_iter)
-            res = asyncfeded_aggregate(self.params, stale, upd.delta,
-                                       lam=fed.lam, eps=fed.eps,
-                                       cap=fed.staleness_cap)
+            agg = (asyncfeded_aggregate_per_leaf if self.per_leaf
+                   else asyncfeded_aggregate)
+            res = agg(self.params, stale, upd.delta, lam=fed.lam,
+                      eps=fed.eps, cap=fed.staleness_cap)
         self.params = res.params
         return res.gamma, res.eta, res.dist, res.delta_norm, upd.delta
 
@@ -438,8 +444,155 @@ class AsyncFedEDServer(AsyncServer):
         self.gmis.release(client_id)
 
 
-_NOT_PORTED = ("asyncfeded-perleaf", "fedasync+constant", "fedasync+poly",
-               "fedasync+hinge", "fedbuff", "fedavg", "fedprox")
+class FedAsyncServer(AsyncServer):
+    """FedAsync (Xie et al.): x <- (1-a) x + a x_local, the mixing weight
+    alpha_t = alpha0 * s(lag) scaled by one of three staleness decays:
+
+    * ``constant`` — s = 1 (no decay);
+    * ``poly``     — s = (lag + 1) ** -poly_a;
+    * ``hinge``    — s = 1 for lag <= b, else 1 / (a (lag - b) + 1).
+    """
+
+    MODES = ("constant", "poly", "hinge")
+
+    def __init__(self, params: PyTree, fed: FedConfig, mode: str = "constant"):
+        super().__init__(params, fed)
+        assert mode in self.MODES, mode
+        self.mode = mode
+        self.name = f"fedasync+{mode}"
+        self.gmis = RingGMIS(depth=fed.gmis_depth)
+        self.gmis.append(self.t, params)
+
+    def on_connect(self, client_id: int) -> ServerReply:
+        return ServerReply(self.params, self.t, self.fed.k_initial)
+
+    def _alpha(self, lag: int) -> float:
+        a0 = self.fed.fedasync_alpha
+        if self.mode == "constant":
+            return a0
+        if self.mode == "poly":
+            return a0 * float(lag + 1) ** (-self.fed.poly_a)
+        a, b = self.fed.hinge_a, self.fed.hinge_b
+        s = 1.0 if lag <= b else 1.0 / (a * (lag - b) + 1.0)
+        return a0 * s
+
+    def on_update(self, upd: ClientUpdate) -> ServerReply:
+        upd2, verdict, scale, raw_norm = self._screen_delta(upd)
+        if upd2 is None:
+            # rejected: nothing mixes, the counter does not move
+            self.history.append(UpdateRecord(
+                self.t, upd.client_id, self.t - upd.snapshot_iter,
+                float("nan"), 0.0, upd.k_used, self.fed.k_initial,
+                float("nan"), raw_norm, "reject"))
+            return ServerReply(self.params, self.t, self.fed.k_initial)
+        upd = self._decompress(upd2)     # f32 before any arithmetic
+        stale, actual = self.gmis.get(upd.snapshot_iter)
+        x_local = pt.tree_add(stale, upd.delta)
+        # the ring may have clamped to its oldest version: x_local is built
+        # from that snapshot, so the decay is taken at the clamped lag
+        lag = self.t - actual
+        alpha = self._alpha(lag)
+        # new tensors every time: the ring holds the trees it mixed
+        self.params = pt.tree_map(
+            lambda xg, xl: ((1.0 - alpha) * xg.float()
+                            + alpha * xl.float()).to(xg.dtype),
+            self.params, x_local)
+        self.t += 1
+        self.gmis.append(self.t, self.params)
+        self.history.append(UpdateRecord(
+            self.t, upd.client_id, lag, float("nan"), alpha, upd.k_used,
+            self.fed.k_initial, float("nan"),
+            float("nan") if raw_norm is None else raw_norm, verdict))
+        return ServerReply(self.params, self.t, self.fed.k_initial)
+
+
+class FedBuffServer(AsyncServer):
+    """FedBuff (Nguyen et al.): buffered asynchronous aggregation."""
+
+    name = "fedbuff"
+
+    def __init__(self, params: PyTree, fed: FedConfig):
+        super().__init__(params, fed)
+        #: buffered (delta in wire form, snapshot_iter) pairs
+        self.buffer: List[tuple] = []
+
+    def on_connect(self, client_id: int) -> ServerReply:
+        return ServerReply(self.params, self.t, self.fed.k_initial)
+
+    def _flush(self, client_id: int, k_used: int) -> None:
+        scale = self.fed.lam / len(self.buffer)
+        # decompressed only at flush time
+        mean = self._delta_tree(self.buffer[0][0])
+        for d, _ in self.buffer[1:]:
+            mean = pt.tree_add(mean, self._delta_tree(d))
+        # the flush's staleness: its oldest snapshot, before the increment
+        lag = self.t - min(snap for _, snap in self.buffer)
+        self.params = pt.tree_axpy(scale, mean, self.params)
+        self.buffer = []
+        self.t += 1
+        self.history.append(UpdateRecord(
+            self.t, client_id, lag, float("nan"), scale, k_used,
+            self.fed.k_initial, float("nan"), float("nan")))
+
+    def on_update(self, upd: ClientUpdate) -> ServerReply:
+        upd2, verdict, scale, raw_norm = self._screen_delta(upd)
+        if upd2 is None:
+            # rejected before buffering: the flush never sees this delta
+            self.history.append(UpdateRecord(
+                self.t, upd.client_id, self.t - upd.snapshot_iter,
+                float("nan"), 0.0, upd.k_used, self.fed.k_initial,
+                float("nan"), raw_norm, "reject"))
+            return ServerReply(self.params, self.t, self.fed.k_initial)
+        self.buffer.append((upd2.delta, upd2.snapshot_iter))
+        if len(self.buffer) >= self.fed.fedbuff_size:
+            self._flush(upd.client_id, upd.k_used)
+        return ServerReply(self.params, self.t, self.fed.k_initial)
+
+    def finalize(self, now: float) -> None:
+        """Flush a partly filled buffer at the end of a run, scaled by its
+        actual size; recorded with client_id -1."""
+        if self.buffer:
+            self._flush(-1, 0)
+
+
+class SyncServer:
+    """Synchronous rounds (FedAvg Eq. 38; FedProx shares the rule — its
+    difference is the client-side proximal term)."""
+
+    is_async = False
+    #: norm screening is an asynchronous-arrival defense: off here
+    screen = None
+
+    def __init__(self, params: PyTree, fed: FedConfig, name: str = "fedavg"):
+        self.params = params
+        self.fed = fed
+        self.name = name
+        self.t = 1
+        self.history: List[UpdateRecord] = []
+
+    def screen_stats(self) -> Optional[dict]:
+        return None
+
+    def on_connect(self, client_id: int) -> ServerReply:
+        return ServerReply(self.params, self.t, self.fed.k_initial)
+
+    def round(self, updates: List[ClientUpdate]) -> ServerReply:
+        """One round: the deltas weighted by ``num_samples / total``,
+        summed in client order."""
+        total = float(sum(u.num_samples for u in updates))
+        acc = None
+        for u in updates:
+            scaled = pt.tree_scale(u.delta, u.num_samples / total)
+            acc = scaled if acc is None else pt.tree_add(acc, scaled)
+        self.params = pt.tree_add(self.params, acc)
+        self.t += 1
+        self.history.append(UpdateRecord(
+            self.t, -1, 0, 0.0, 1.0, updates[0].k_used,
+            self.fed.k_initial, 0.0, 0.0))
+        return ServerReply(self.params, self.t, self.fed.k_initial)
+
+    def finalize(self, now: float) -> None:
+        """End-of-run hook: synchronous rounds leave nothing pending."""
 
 
 def make_server(name: str, params: PyTree, fed: FedConfig, **kw):
@@ -448,9 +601,16 @@ def make_server(name: str, params: PyTree, fed: FedConfig, **kw):
     name = name.lower()
     if name == "asyncfeded":
         return AsyncFedEDServer(params, fed, **kw)
+    if name == "asyncfeded-perleaf":
+        return AsyncFedEDServer(params, fed, per_leaf=True, **kw)
     if name == "asyncfeded-displacement":
         return AsyncFedEDServer(params, fed, gmis_mode="displacement", **kw)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"aggregator {name!r} is not ported yet (ROADMAP.md A9)")
+    if name.startswith("fedasync+"):
+        mode = name.split("+", 1)[1]
+        if mode in FedAsyncServer.MODES:
+            return FedAsyncServer(params, fed, mode=mode, **kw)
+    if name == "fedbuff":
+        return FedBuffServer(params, fed, **kw)
+    if name in ("fedavg", "fedprox"):
+        return SyncServer(params, fed, name=name, **kw)
     raise ValueError(f"unknown aggregator {name!r}")

@@ -17,24 +17,27 @@ as the reference draws it (``jax.random``): parity runs pass the
 reference's params as ``init_params``; otherwise a ``torch.Generator``
 seeded with ``seed`` draws them.
 
-This slice runs the asynchronous roster loop with the per-client ``loop``
-engine, burst windows and compressed deltas. Synchronous rounds, the
-population engine, the cohort engines and the adversary are later slices
-and raise ``NotImplementedError``.
+The port runs the asynchronous roster loop with the per-client ``loop``
+engine, burst windows, compressed deltas and the adversary, and the
+synchronous rounds of FedAvg/FedProx, whose round lasts as long as its
+slowest client. The population engine and the cohort engines are later
+slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tasks as tasks_mod
+from repro_torch.core.adversary import make_adversary
 from repro_torch.core.behavior import make_behavior
 from repro_torch.core.client import Client
-from repro_torch.core.events import EventLoop, make_window_controller
+from repro_torch.core.events import (EventLoop, VirtualClock,
+                                     make_window_controller)
 from repro_torch.core.server import ClientUpdate, ServerReply, make_server
 from repro_torch.utils import pytree as pt
 from repro_torch.utils.device import resolve_device
@@ -56,10 +59,14 @@ class SimResult:
     points: List[EvalPoint]
     history: list
     total_updates: int
-    #: server drain calls (== aggregations for window 0)
+    #: server drain calls (== aggregations for window 0; == rounds for
+    #: synchronous servers)
     total_drains: int = 0
     #: norm-screening counters; None when screening is off
     screen: Optional[dict] = None
+    #: adversary stats (attack name, corrupted client ids, applications);
+    #: None for benign runs
+    attack: Optional[dict] = None
 
     def max_accuracy(self, within_time: Optional[float] = None) -> float:
         pts = [p for p in self.points
@@ -89,13 +96,20 @@ class SimResult:
             out["mean_gamma"] = float(sum(gammas) / len(gammas))
         if self.screen is not None:
             out["screen"] = self.screen
+        if self.attack is not None:
+            out["attack"] = self.attack
+        return out
+
+    def to_json(self) -> dict:
+        """JSON-serializable record: the summary plus the accuracy curve."""
+        out = self.summary()
+        out["curve"] = [(p.time, p.accuracy) for p in self.points]
         return out
 
 
 def _check_supported(fed: FedConfig) -> None:
     for field, default, item in (("population", "off", "A15"),
-                                 ("client_engine", "loop", "A14"),
-                                 ("attack", "none", "A13")):
+                                 ("client_engine", "loop", "A14")):
         if getattr(fed, field) != default:
             raise NotImplementedError(
                 f"FedConfig.{field}={getattr(fed, field)!r} is not ported "
@@ -129,12 +143,11 @@ class FederatedSimulation:
         params = pt.tree_map(lambda t: t.to(self.device), init_params)
         self.model_bytes = pt.tree_bytes(params)
         kw = dict(server_kwargs or {})
-        if algorithm.startswith("asyncfeded"):
+        if (algorithm.startswith("asyncfeded")
+                and algorithm != "asyncfeded-perleaf"):
+            # per-leaf staleness only exists on the pytree backend
             kw.setdefault("backend", fed.backend)
         self.server = make_server(algorithm, params, fed, **kw)
-        if not self.server.is_async:
-            raise NotImplementedError(
-                "synchronous rounds are not ported yet (ROADMAP.md A10)")
         self.clients = [Client(i, self.task, train_sets[i], fed, seed=seed,
                                device=self.device)
                         for i in range(fed.num_clients)]
@@ -145,7 +158,9 @@ class FederatedSimulation:
         self.behavior = make_behavior(
             behavior or fed.client_behavior, fed, seed=seed,
             model_bytes=self.model_bytes, heterogeneity=heterogeneity, **bkw)
-        self.prox_mu = 0.0
+        # None for benign configs: no extra RNG stream exists
+        self.adversary = make_adversary(fed, seed=seed)
+        self.prox_mu = fed.fedprox_mu if algorithm == "fedprox" else 0.0
         #: the last run's window controller (events.WindowController)
         self.window_controller = None
         self._max_updates: Optional[int] = None
@@ -157,18 +172,27 @@ class FederatedSimulation:
                                                self.eval_batch)
         return EvalPoint(time, self.server.t, float(acc), float(loss))
 
+    def _attack_dict(self) -> Optional[dict]:
+        return None if self.adversary is None else self.adversary.stats()
+
     # ------------------------------------------------------- local training --
+    def _run_locals(self, jobs: List[Tuple[Client, ServerReply]]
+                    ) -> List[ClientUpdate]:
+        """Train every ``(client, reply)`` job, in job order."""
+        return [c.run_local(r.params, r.k_next, r.iteration,
+                            self.prox_mu)[0] for c, r in jobs]
+
     def _dispatch(self, loop: EventLoop, now: float,
                   jobs: List[Tuple[Client, ServerReply]]) -> int:
-        """Train a fan-out, then arm one arrival per client. Each update is
-        put in wire form at emission, after training and before the queue.
-        Behavior draws happen after training, in job order, as in the
-        reference. Returns the number of updates dispatched (dropped-out
-        clients count too)."""
-        updates: List[ClientUpdate] = [
-            c.run_local(r.params, r.k_next, r.iteration, self.prox_mu)[0]
-            for c, r in jobs]
-        for (c, reply), upd in zip(jobs, updates):
+        """Train a fan-out, then arm one arrival per client. A byzantine
+        client's delta is corrupted at emission, after training; then each
+        update is put in wire form, so the wire carries what the attacker
+        emitted. Behavior draws happen after training, in job order, as in
+        the reference. Returns the number of updates dispatched
+        (dropped-out clients count too)."""
+        for (c, reply), upd in zip(jobs, self._run_locals(jobs)):
+            if self.adversary is not None:
+                upd = self.adversary.corrupt(upd)
             upd = c.compress_update(upd)
             delay = self.behavior.dispatch(c.client_id, reply.k_next, now)
             if delay is not None:
@@ -181,8 +205,14 @@ class FederatedSimulation:
     def run(self, max_time: float = 300.0, eval_every: int = 5,
             max_updates: Optional[int] = None) -> SimResult:
         """Run until virtual ``max_time`` — or until ``max_updates``
-        aggregated updates, whichever comes first."""
+        aggregated updates (rounds, for a synchronous server), whichever
+        comes first."""
         self._max_updates = max_updates
+        if self.server.is_async:
+            return self._run_async(max_time, eval_every)
+        return self._run_sync(max_time, eval_every)
+
+    def _run_async(self, max_time: float, eval_every: int) -> SimResult:
         points = [self._eval_point(0.0)]
         auto_kw = {}
         if self.fed.window_gamma_threshold > 0:
@@ -217,4 +247,71 @@ class FederatedSimulation:
         self.server.finalize(end)
         points.append(self._eval_point(end))
         return SimResult(self.algorithm, points, self.server.history,
-                         updates, loop.drains, self.server.screen_stats())
+                         updates, loop.drains, self.server.screen_stats(),
+                         self._attack_dict())
+
+    def _run_sync(self, max_time: float, eval_every: int) -> SimResult:
+        """Synchronous rounds: the whole surviving roster trains from one
+        reply; the round lasts as long as its slowest client."""
+        points = [self._eval_point(0.0)]
+        clock = VirtualClock()
+        roster = list(self.clients)
+        rounds = 0
+        while clock.now < max_time and roster:
+            reply0 = self.server.on_connect(0)
+            updates = self._run_locals([(c, reply0) for c in roster])
+            if self.adversary is not None:
+                updates = [self.adversary.corrupt(u) for u in updates]
+            durations = [self.behavior.dispatch(c.client_id, reply0.k_next,
+                                                clock.now)
+                         for c in roster]
+            # a dropped client's update still aggregates (it uploaded, then
+            # left), but it joins no later round
+            roster = [c for c, d in zip(roster, durations) if d is not None]
+            live = [d for d in durations if d is not None]
+            if not live:                   # every client dropped out
+                break
+            clock.advance(max(live))       # the straggler sets the round
+            self.server.round(updates)
+            rounds += 1
+            if rounds % max(1, eval_every // 2) == 0 or clock.now >= max_time:
+                points.append(self._eval_point(min(clock.now, max_time)))
+            if self._max_updates is not None and rounds >= self._max_updates:
+                break
+        self.server.finalize(min(clock.now, max_time))
+        return SimResult(self.algorithm, points, self.server.history,
+                         rounds, rounds, self.server.screen_stats(),
+                         self._attack_dict())
+
+
+def run_comparison(task, algorithms: List[str],
+                   fed: Optional[FedConfig] = None, max_time: float = 300.0,
+                   seeds: Tuple[int, ...] = (0,), eval_every: int = 5,
+                   suspension_prob: Optional[float] = None, *,
+                   heterogeneity: float = 0.6,
+                   server_kwargs: Optional[dict] = None,
+                   batch_window: Optional[Any] = None,
+                   behavior_kwargs: Optional[dict] = None,
+                   device=None, init_params: Optional[PyTree] = None
+                   ) -> Dict[str, List[SimResult]]:
+    """Fig. 2/3 comparison: the same task, clients and clock across algorithms.
+
+    ``heterogeneity``, ``server_kwargs`` (e.g. ``{"backend": "pallas"}``),
+    ``batch_window``, ``behavior_kwargs``, ``device`` and ``init_params``
+    are passed to every :class:`FederatedSimulation`."""
+    task = tasks_mod.as_task(task)
+    fed = fed or task.fed
+    if suspension_prob is not None:
+        fed = dataclasses.replace(fed, suspension_prob=suspension_prob)
+    out: Dict[str, List[SimResult]] = {}
+    for alg in algorithms:
+        runs = []
+        for seed in seeds:
+            sim = FederatedSimulation(
+                task, fed, algorithm=alg, seed=seed,
+                heterogeneity=heterogeneity, server_kwargs=server_kwargs,
+                batch_window=batch_window, behavior_kwargs=behavior_kwargs,
+                device=device, init_params=init_params)
+            runs.append(sim.run(max_time=max_time, eval_every=eval_every))
+        out[alg] = runs
+    return out

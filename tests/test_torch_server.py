@@ -181,12 +181,6 @@ class TestServerContract:
                            self.fed(delta_compression=mode)
                            ).batch_limit() is None
 
-    @pytest.mark.parametrize("name", ["fedasync+constant", "fedbuff",
-                                      "fedavg", "asyncfeded-perleaf"])
-    def test_baselines_not_ported(self, name):
-        with pytest.raises(NotImplementedError):
-            make_server(name, self.params(), self.fed())
-
     def test_unknown_aggregator(self):
         with pytest.raises(ValueError):
             make_server("fedsgd", self.params(), self.fed())

@@ -92,12 +92,11 @@ def test_default_device_needs_cuda():
 @pytest.mark.parametrize("change", [dict(population="table",
                                          arrival_rate=1.0),
                                     dict(client_engine="cohort"),
-                                    dict(attack="scale", attack_frac=0.1),
                                     dict(model_shards=2, backend="pallas")])
 def test_later_slices_raise(change):
     """Each later slice raises naming its ROADMAP item when the simulation
-    is built: the population engine, the cohort engine, the adversary and
-    the model-sharded flat state."""
+    is built: the population engine, the cohort engine and the
+    model-sharded flat state."""
     fed = dataclasses.replace(TC.SYNTHETIC_1_1.fed, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu").run(
