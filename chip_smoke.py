@@ -24,8 +24,20 @@ fedasync+poly and +hinge, fedbuff, fedprox, asyncfeded-perleaf and
 -displacement; only the flat-state run may launch fedagg kernels) and two
 attacked runs (``attack``: sign-flip with norm screening through the burst
 drain, gaussian noise on int8 deltas), each against its CPU run from the
-same init. ``fedagg_fused``, which no path of either package calls, is held
-to the bit against ``fedagg_axpy`` and ``fedagg_norms``. The line of its
+same init. Then the cohort engine (``cohort``: synthetic-burst as
+configured, synthetic-256 with 256 clients per fan-out, femnist-64's CNN
+under vmap; each CUDA cohort trace against the CUDA loop engine's and the
+CPU cohort engine's, every burst drained through the batched kernels), the
+memory planner (``budget``: femnist-64 under budgets that land its seeding
+fan-out on each lower rung, each plan's estimate beside the device memory
+the fan-out took, every trace equal to the unconstrained run's), the
+population engine (``population``: the lazy table against the materialized
+reference at 256 clients, synthetic-1m built lazily and run, and the wall
+of a 10,000-client copy at the same arrival rate) and checkpoints
+(``checkpoint``: the burst run's flat server saved and restored into a
+fresh server bitwise, and re-padded). ``fedagg_fused``, which no path of
+either package calls, is held to the bit against ``fedagg_axpy`` and
+``fedagg_norms``. The line of its
 standard output before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them, the last line is ``{"ok": true, "device": {...}}``, and every other
@@ -129,6 +141,28 @@ ATTACK_RUNS = [("synthetic-burst-sign-flip", "synthetic-burst",
                ("synthetic-1-1-int8-gaussian-noise", "synthetic-1-1",
                 dict(backend="pallas", delta_compression="int8",
                      attack="gaussian-noise", attack_frac=0.2), 10.0, 40)]
+#: the cohort phase: the scaled scenarios as the repo ships them (cohort
+#: engine; synthetic-burst with its auto window, synthetic-256 with 256
+#: clients per fan-out and a 0.05 s window, femnist-64's CNN under vmap on
+#: the tree backend), each at an update cap, on the card with the cohort
+#: and the loop engine and on the CPU with the cohort engine
+COHORT_RUNS = [("synthetic-burst", 60), ("synthetic-256", 300),
+               ("femnist-64", 20)]
+#: the budget phase: femnist-64 under budgets that land its seeding fan-out
+#: (64 clients x 10 steps) on each lower rung of the planner's ladder: the
+#: footprint of (clients, steps), less one byte for the loop
+BUDGET_RUNGS = [("vmap width clamped to 16", 16, 10),
+                ("K-scan split into 2-step microbatches", 2, 2),
+                ("falling back to the per-client loop", 2, 1)]
+BUDGET_CAP = 10
+#: the cohort run profiled once more (device busy time and idle share)
+PROFILED_COHORT = "synthetic-256"
+#: the population phase: table against materialized at N = 256 (a
+#: synthetic-1-1 clone at 40 check-ins per virtual second, flat server,
+#: cohort engine), then synthetic-1m and a 10,000-client copy at the same
+#: arrival rate, for the virtual seconds given
+POP_N, POP_TIME = 256, 1.5
+POP_1M_TIME = 5.0
 #: updates of an unmeasured run of each task before its measured one, so
 #: that first-use loading of PyTorch's kernels stays out of the timings
 WARMUP_UPDATES = 3
@@ -1740,6 +1774,379 @@ def phase_attack(torch, fedagg, launches: dict) -> None:
         _add(launches, counts)
 
 
+def _timed_sim(torch, fedagg, task, fed, cap, device, max_time=1e9, seed=0):
+    """One FederatedSimulation with timers, launch counts set to 0 just
+    before it runs and read just after: wall s, client s (every fan-out,
+    ``_run_locals``: both engines end in a wait for the losses), server s
+    (``on_update_batch`` per drain, ending in a wait for the record's
+    scalars), eval s, the width of each fan-out of two or more, the drain
+    sizes. Returns (row, result, drain sizes, launch counts, simulation)."""
+    from repro_torch.core.simulator import FederatedSimulation
+
+    sim = FederatedSimulation(task, fed, "asyncfeded", seed=seed,
+                              device=device)
+    client_s, server_s, eval_s, widths, sizes = [], [], [], [], []
+    run_locals = sim._run_locals
+
+    def locals_(jobs):
+        t0 = time.perf_counter()
+        out = run_locals(jobs)
+        client_s.append(time.perf_counter() - t0)
+        if len(jobs) > 1:
+            widths.append(len(jobs))
+        return out
+    sim._run_locals = locals_
+    drain = sim.server.on_update_batch
+    sim.server.on_update_batch = lambda ups: sizes.append(len(ups)) or drain(
+        ups)
+    _time_calls(sim.server, "on_update_batch", server_s)
+    _time_calls(sim, "_eval_point", eval_s)
+    fedagg.reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run(max_time=max_time, eval_every=5, max_updates=cap)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in fedagg.KERNELS}
+    row = {"engine": fed.client_engine, "device": device,
+           "updates": res.total_updates, "drains": res.total_drains,
+           "max_accuracy": res.max_accuracy(),
+           "final_accuracy": res.points[-1].accuracy, "wall_s": wall,
+           "client_s": sum(client_s), "server_s": sum(server_s),
+           "eval_s": sum(eval_s), "fan_outs": len(widths),
+           "mean_width": statistics.mean(widths) if widths else 0,
+           "max_width": max(widths, default=0), "plan": res.plan,
+           "launches": counts}
+    return row, res, sizes, counts, sim
+
+
+def _check_drain_launches(label, sim, res, sizes, counts) -> None:
+    """On the flat ring-GMIS server every drain of two or more launches the
+    batched pair once and every single arrival the single sweeps once; the
+    tree backend launches no fedagg kernel."""
+    multi = sum(1 for b in sizes if b > 1)
+    singles = sum(1 for b in sizes if b == 1)
+    if getattr(sim.server, "backend", None) == "pallas":
+        want = {"fedagg_norms": singles, "fedagg_axpy": singles,
+                "fedagg_norms_batched": multi, "fedagg_apply_batched": multi}
+    else:
+        want = {}
+    check(all(v == want.get(k, 0) for k, v in counts.items()),
+          f"{label}: launches {counts}, expected {want}")
+
+
+def phase_cohort(torch, fedagg, launches: dict):
+    """``COHORT_RUNS`` on the card: each scenario as configured (cohort
+    engine) against the loop engine on the card and the cohort engine on
+    the CPU, from the same seed (so the same initial params): the three
+    event traces equal, accuracy within ``ACC_ATOL``, every drain through
+    the kernels of its path. Returns the synthetic-burst cohort run's
+    simulation (the checkpoint phase saves its server)."""
+    from repro_torch import configs
+
+    burst_sim = None
+    for name, cap in COHORT_RUNS:
+        task = configs.SCENARIOS[name]
+        fed_c = task.fed
+        fed_l = dataclasses.replace(fed_c, client_engine="loop")
+        check(fed_c.client_engine == "cohort",
+              f"{name}: engine {fed_c.client_engine}, expected cohort")
+        for fed in (fed_c, fed_l):             # unmeasured warm-ups
+            _timed_sim(torch, fedagg, task, fed, WARMUP_UPDATES, "cuda",
+                       seed=1)
+        row_c, res_c, sizes, counts_c, sim_c = _timed_sim(
+            torch, fedagg, task, fed_c, cap, "cuda")
+        _check_drain_launches(f"{name} cohort", sim_c, res_c, sizes,
+                              counts_c)
+        row_l, res_l, sizes_l, counts_l, sim_l = _timed_sim(
+            torch, fedagg, task, fed_l, cap, "cuda")
+        _check_drain_launches(f"{name} loop", sim_l, res_l, sizes_l,
+                              counts_l)
+        row_cpu, res_cpu, _, _, _ = _timed_sim(torch, fedagg, task, fed_c,
+                                               cap, "cpu")
+        same_cpu = _key(res_c.history) == _key(res_cpu.history)
+        same_loop = _key(res_c.history) == _key(res_l.history)
+        gap_cpu = abs(res_c.points[-1].accuracy - res_cpu.points[-1].accuracy)
+        gap_loop = abs(res_c.points[-1].accuracy - res_l.points[-1].accuracy)
+        emit({"phase": "cohort", "scenario": name, "cap": cap,
+              "cohort": row_c, "loop": row_l,
+              "cpu_cohort": {k: row_cpu[k] for k in (
+                  "updates", "drains", "fan_outs", "mean_width",
+                  "final_accuracy")},
+              "cpu_trace_identical": same_cpu,
+              "loop_trace_identical": same_loop, "cpu_acc_gap": gap_cpu,
+              "loop_acc_gap": gap_loop, "acc_atol": ACC_ATOL,
+              "client_s_loop_over_cohort":
+                  row_l["client_s"] / max(row_c["client_s"], 1e-9),
+              "burst_sizes": {str(b): sizes.count(b)
+                              for b in sorted(set(sizes))}})
+        check(res_c.total_updates >= cap, f"{name}: {res_c.total_updates} "
+              f"updates, expected {cap}")
+        check(row_c["fan_outs"] > 0 and res_c.plan["engine"] == "cohort",
+              f"{name}: no cohort fan-out ({res_c.plan})")
+        check(same_cpu, f"{name}: CUDA and CPU cohort traces differ")
+        check(same_loop, f"{name}: CUDA cohort and loop traces differ")
+        check(gap_cpu <= ACC_ATOL and gap_loop <= ACC_ATOL,
+              f"{name}: accuracy gaps {gap_cpu}, {gap_loop}")
+        _add(launches, counts_c)
+        _add(launches, counts_l)
+        if name == PROFILED_COHORT:
+            phase_cohort_profile(torch, task, fed_c, cap)
+        if name == "synthetic-burst":
+            check(any(b > 1 for b in sizes), f"{name}: no burst drained")
+            burst_sim = sim_c
+    return burst_sim
+
+
+def phase_cohort_profile(torch, task, fed, cap: int) -> None:
+    """The cohort run once more under torch.profiler: device busy time, the
+    idle share of the wall time (an upper bound: the profiler's host work
+    lengthens the wall) and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.simulator import FederatedSimulation
+
+    sim = FederatedSimulation(task, fed, "asyncfeded", seed=0,
+                              device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(max_time=1e9, eval_every=5, max_updates=cap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit({"phase": "cohort_profile", "scenario": task.name, "cap": cap,
+          **device_summary(prof, wall)})
+
+
+def _fanout_memory(torch, sim, fanouts: list) -> None:
+    """Wrap ``sim._run_locals`` so that each fan-out of two or more
+    appends its plan (reason, est_bytes) beside the device memory it took:
+    the peak of ``torch.cuda.max_memory_allocated()`` over the fan-out less
+    what was allocated before it."""
+    inner = sim._run_locals
+
+    def locals_(jobs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = inner(jobs)
+        torch.cuda.synchronize()
+        if len(jobs) > 1:
+            plan = sim.cohort_plan
+            fanouts.append({
+                "clients": len(jobs), "engine": plan.engine,
+                "width": plan.width, "k_chunk": plan.k_chunk,
+                "reason": plan.reason, "est_bytes": plan.est_bytes,
+                "full_bytes": plan.full_bytes,
+                "budget_bytes": plan.budget_bytes,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base})
+        return out
+    sim._run_locals = locals_
+
+
+def phase_budget(torch, fedagg) -> None:
+    """femnist-64 unconstrained and under the ``BUDGET_RUNGS`` budgets: the
+    seeding fan-out lands on each lower rung, every run gives the
+    unconstrained trace, and each fan-out's plan (reason, est_bytes) is
+    printed beside the device memory it took (``_fanout_memory``); then
+    synthetic-256's fan-outs, unconstrained, for the law on the MLP."""
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.core import tasks
+    from repro_torch.core.simulator import FederatedSimulation
+
+    task = configs.SCENARIOS["femnist-64"]
+    fed0 = task.fed
+    lt = tasks.as_task(task)
+    bb, ab = lt.batch_bytes(fed0), lt.activation_bytes(fed0)
+    free = None
+    for rung, clients, steps in [("fits", 0, 0)] + BUDGET_RUNGS:
+        budget = 0
+        if clients:
+            budget = shapes.cohort_footprint_bytes(
+                free[1].model_bytes, bb, ab, clients, steps)
+            if rung.endswith("loop"):       # just below a 2 x 1 chunk
+                budget -= 1
+        # half a byte over, so that int(mb * 2**20) is the budget itself
+        fed = dataclasses.replace(
+            fed0, memory_budget_mb=(budget + 0.5) / 2 ** 20 if budget else 0)
+        fanouts = []
+        sim = FederatedSimulation(task, fed, "asyncfeded", seed=0,
+                                  device="cuda")
+        _fanout_memory(torch, sim, fanouts)
+        t0 = time.perf_counter()
+        res = sim.run(max_time=1e9, eval_every=5, max_updates=BUDGET_CAP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if free is None:
+            free = (res, sim)
+        same = _key(res.history) == _key(free[0].history)
+        emit({"phase": "budget", "scenario": "femnist-64", "rung": rung,
+              "budget_bytes": budget, "updates": res.total_updates,
+              "wall_s": wall, "trace_identical_unconstrained": same,
+              "fan_outs": fanouts})
+        check(fanouts and rung in fanouts[0]["reason"],
+              f"budget {budget}: seeding plan {fanouts[:1]}, expected "
+              f"{rung!r}")
+        check(same, f"budget {budget} ({rung}): trace differs from the "
+              "unconstrained run's")
+    # the law on the MLP: synthetic-256's fan-outs, unconstrained
+    name = "synthetic-256"
+    cap = dict(COHORT_RUNS)[name]
+    sim = FederatedSimulation(configs.SCENARIOS[name],
+                              configs.SCENARIOS[name].fed, "asyncfeded",
+                              seed=0, device="cuda")
+    fanouts = []
+    _fanout_memory(torch, sim, fanouts)
+    sim.run(max_time=1e9, eval_every=5, max_updates=cap)
+    emit({"phase": "budget", "scenario": name, "rung": "fits",
+          "budget_bytes": 0, "fan_outs": fanouts})
+
+
+def _pop_task(configs, n: int, mode: str):
+    """synthetic-1-1 at population scale ``n`` (the population tests'
+    setting): diurnal check-ins at 40 per virtual second, sessions staying
+    with probability 0.25, auto window, flat server, cohort engine."""
+    base = configs.SYNTHETIC_1_1
+    fed = dataclasses.replace(
+        base.fed, num_clients=n, population=mode, arrival_rate=40.0,
+        session_stay_prob=0.25, backend="pallas", client_engine="cohort",
+        client_behavior="diurnal", batch_window="auto")
+    return dataclasses.replace(base, num_clients=n, samples_per_client=32,
+                               fed=fed)
+
+
+def phase_population(torch, fedagg, launches: dict) -> None:
+    """The population engine on the card: table against materialized at
+    ``POP_N`` (trace, counters, per-client table); synthetic-1m built
+    lazily (no roster, no 1M-wide array, nothing contacted) and run for
+    ``POP_1M_TIME`` virtual seconds, contacting fewer than 10,000; and a
+    10,000-client copy at the same arrival rate, whose wall is printed
+    beside the 1M run's (a row, not a check)."""
+    from repro_torch import configs
+    from repro_torch.core.simulator import FederatedSimulation
+
+    runs = {}
+    for mode in ("table", "materialized"):
+        task = _pop_task(configs, POP_N, mode)
+        row, res, sizes, counts, sim = _timed_sim(
+            torch, fedagg, task, task.fed, None, "cuda", max_time=POP_TIME,
+            seed=3)
+        _check_drain_launches(f"population {mode}", sim, res, sizes, counts)
+        runs[mode] = (row, res, sim)
+        _add(launches, counts)
+    (row_t, res_t, sim_t), (row_m, res_m, sim_m) = (runs["table"],
+                                                    runs["materialized"])
+
+    def rows(sim):
+        return {i: {k: v for k, v in r.items() if k != "slot"}
+                for i, r in sim._population.table().items()
+                if r["rounds"] > 0}
+    counters = ("checkins", "skipped_checkins", "sessions", "max_in_flight",
+                "dropped")
+    same = _key(res_t.history) == _key(res_m.history)
+    same_counts = all(res_t.population[k] == res_m.population[k]
+                      for k in counters)
+    same_rows = rows(sim_t) == rows(sim_m)
+    emit({"phase": "population", "run": f"table-vs-materialized-{POP_N}",
+          "table": row_t, "materialized": row_m,
+          "population_table": res_t.population,
+          "population_materialized": res_m.population,
+          "trace_identical": same, "counters_identical": same_counts,
+          "tables_identical": same_rows})
+    check(res_t.total_updates >= 10, "population: fewer than 10 updates")
+    check(same and same_counts and same_rows,
+          "population: table and materialized runs differ")
+    check(res_t.population["materialized"] == res_t.population["contacted"]
+          < POP_N, f"population: {res_t.population}")
+
+    walls = {}
+    for n in (None, 1_000_000, 10_000):   # None: an unmeasured warm-up
+        task = configs.SYNTHETIC_1M
+        if n not in (None, 1_000_000):
+            task = dataclasses.replace(
+                task, num_clients=n,
+                fed=dataclasses.replace(task.fed, num_clients=n))
+        t0 = time.perf_counter()
+        sim = FederatedSimulation(task, task.fed, "asyncfeded", seed=0,
+                                  device="cuda")
+        built = time.perf_counter() - t0
+        pop = sim._population
+        lazy = (sim.clients == [] and pop.contacted == 0
+                and sim.behavior.step_time is None)
+        sizes = []
+        drain = sim.server.on_update_batch
+        sim.server.on_update_batch = (
+            lambda ups, drain=drain: sizes.append(len(ups)) or drain(ups))
+        fedagg.reset_launches()
+        t0 = time.perf_counter()
+        res = sim.run(max_time=0.5 if n is None else POP_1M_TIME,
+                      eval_every=50)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if n is None:
+            continue
+        counts = {k.__name__: k.launches for k in fedagg.KERNELS}
+        _check_drain_launches(f"population {n}", sim, res, sizes, counts)
+        _add(launches, counts)
+        walls[n] = wall
+        stats = res.population
+        emit({"phase": "population", "run": task.name, "num_clients": n,
+              "virtual_s": POP_1M_TIME, "construct_s": built,
+              "wall_s": wall, "updates": res.total_updates,
+              "drains": res.total_drains, "largest_burst": max(sizes),
+              "lazy_construction": lazy, **stats, "launches": counts})
+        check(lazy, f"{task.name}: construction was not lazy")
+        check(0 < stats["contacted"] < 10_000
+              and stats["capacity"] < 10_000,
+              f"{task.name}: contacted {stats['contacted']}, capacity "
+              f"{stats['capacity']}")
+    emit({"phase": "population", "run": "wall_1m_over_10k",
+          "ratio": walls[1_000_000] / walls[10_000]})
+
+
+def phase_checkpoint(torch, sim) -> None:
+    """After the synthetic-burst cohort run: ``save_checkpoint``, a fresh
+    server from other params, ``restore_checkpoint`` gives the flat vector
+    bitwise; restoring with twice the padded length keeps the ``n`` true
+    elements and pads zeros. Files go to the git-ignored ``build/``."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import checkpoint
+    from repro_torch.core.server import AsyncFedEDServer
+
+    d = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(d, ignore_errors=True)
+    server = sim.server
+    t0 = time.perf_counter()
+    path = server.save_checkpoint(str(d))
+    saved = time.perf_counter() - t0
+    fresh = AsyncFedEDServer(
+        sim.task.init(torch.Generator().manual_seed(1), sim.device),
+        sim.fed, backend="pallas")
+    differs = not torch.equal(fresh._flat.vec, server._flat.vec)
+    t0 = time.perf_counter()
+    fresh.restore_checkpoint(str(d))
+    restored = time.perf_counter() - t0
+    bitwise = torch.equal(fresh._flat.vec, server._flat.vec)
+    spec = server._flat.spec
+    wide, meta = checkpoint.restore_flat(str(d), n=spec.n,
+                                         n_padded=2 * spec.n_padded)
+    vec = server._flat.vec.cpu().numpy()
+    repad = (wide.shape == (2 * spec.n_padded,)
+             and np.array_equal(wide[:spec.n], vec[:spec.n])
+             and not wide[spec.n:].any())
+    shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "checkpoint", "scenario": "synthetic-burst",
+          "file": Path(path).name, "meta": meta, "save_s": saved,
+          "restore_s": restored, "restored_bitwise": bitwise,
+          "repadded_keeps_n": repad})
+    check(differs and bitwise, "checkpoint: restored flat vector differs")
+    check(repad, "checkpoint: re-padded restore lost the true elements")
+
+
 def phase_profile(torch) -> None:
     """synthetic-1-1 and femnist once more under torch.profiler: device
     busy time (the sum of the device-side events), the idle share of the
@@ -1864,8 +2271,17 @@ def main(argv) -> int:
     phase_comparison(torch, fedagg, launches)
     t1 = time.perf_counter()
     phase_attack(torch, fedagg, launches)
+    t2 = time.perf_counter()
+    burst_sim = phase_cohort(torch, fedagg, launches)
+    t3 = time.perf_counter()
+    phase_budget(torch, fedagg)
+    t4 = time.perf_counter()
+    phase_population(torch, fedagg, launches)
+    t5 = time.perf_counter()
+    phase_checkpoint(torch, burst_sim)
     emit({"phase": "phase_seconds", "comparison": t1 - t0,
-          "attack": time.perf_counter() - t1})
+          "attack": t2 - t1, "cohort": t3 - t2, "budget": t4 - t3,
+          "population": t5 - t4, "checkpoint": time.perf_counter() - t5})
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"

@@ -5,8 +5,9 @@ from repro_torch.configs.base import ARCHS, FedConfig, ModelConfig, reduced
 from repro_torch.configs.paper_tasks import (FEMNIST, PAPER_TASKS, SHAKESPEARE,
                                              SYNTHETIC_1_1, PaperTaskConfig)
 from repro_torch.configs.scenarios import (FEMNIST_64, SCENARIOS,
-                                           SYNTHETIC_256, SYNTHETIC_BURST,
-                                           SYNTHETIC_DIURNAL, SYNTHETIC_TRACE)
+                                           SYNTHETIC_1M, SYNTHETIC_256,
+                                           SYNTHETIC_BURST, SYNTHETIC_DIURNAL,
+                                           SYNTHETIC_TRACE)
 
 # importing each module registers its CONFIG into ARCHS
 from repro_torch.configs import (h2o_danube_1_8b, mamba2_1_3b,  # noqa: F401
@@ -20,4 +21,5 @@ def get_arch(arch_id: str) -> ModelConfig:
 __all__ = ["FedConfig", "PaperTaskConfig", "PAPER_TASKS", "SYNTHETIC_1_1",
            "FEMNIST", "SHAKESPEARE", "SCENARIOS", "SYNTHETIC_256",
            "FEMNIST_64", "SYNTHETIC_BURST", "SYNTHETIC_DIURNAL",
-           "SYNTHETIC_TRACE", "ARCHS", "ModelConfig", "get_arch", "reduced"]
+           "SYNTHETIC_TRACE", "SYNTHETIC_1M", "ARCHS", "ModelConfig",
+           "get_arch", "reduced"]

@@ -1,0 +1,57 @@
+"""The stacked-cohort footprint law the memory-budget planner applies
+(``repro_torch.core.budget``).
+
+The law is pure shape arithmetic — no tensors, no allocation — so the
+planner can evaluate it before any model state exists. The constants and
+formulas are the JAX package's (``repro/configs/shapes.py``), so one
+``FedConfig`` plans the same fan-outs in both packages.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+#: Stacked per-client parameter-state copies a cohort dispatch holds live:
+#: the params row, the momentum row, the delta output row, and one
+#: gradient-sized temporary inside the backward pass.
+PARAM_STATE_COPIES = 4
+
+#: Elements per int8 scale block of the compressed delta transport
+#: (``kernels.fedagg.fedagg.QBLOCK``).
+DELTA_SCALE_BLOCK = 1024
+
+
+def delta_wire_bytes(param_bytes: int, mode: str) -> int:
+    """Transport bytes of ONE client delta under ``mode``
+    (``FedConfig.delta_compression``): int8 carries 1 byte per element plus
+    one f32 scale per ``DELTA_SCALE_BLOCK`` elements, bf16 2 bytes per
+    element, "off" the f32 vector (``param_bytes``)."""
+    elems = int(param_bytes) // 4
+    if mode == "int8":
+        return elems + 4 * (elems // DELTA_SCALE_BLOCK)
+    if mode == "bf16":
+        return 2 * elems
+    return int(param_bytes)
+
+
+def cohort_footprint_bytes(param_bytes: int, batch_bytes: int,
+                           act_bytes: int, clients: int, k_steps: int,
+                           delta_bytes: Optional[int] = None,
+                           model_shards: int = 1) -> int:
+    """Estimated device bytes of ONE stacked-cohort dispatch::
+
+        footprint(C, K) = C * ((3 * P + D) / S + K * B + A)
+
+    Every stacked client row carries three parameter copies (params,
+    momentum, the backward temporary), its delta row at its wire size
+    ``D`` (``delta_bytes``, default the f32 ``param_bytes``), its K staged
+    mini-batches of ``B`` bytes and one step's activations ``A`` (steps run
+    one after another, so activations do not multiply by K). ``S =
+    model_shards`` divides the parameter-shaped rows only."""
+    if delta_bytes is None:
+        delta_bytes = int(param_bytes)
+    shards = max(1, int(model_shards))
+    param_state = ((PARAM_STATE_COPIES - 1) * int(param_bytes)
+                   + int(delta_bytes))
+    per_client = (-(-param_state // shards)        # ceil: shards round up
+                  + int(k_steps) * int(batch_bytes) + int(act_bytes))
+    return int(clients) * per_client

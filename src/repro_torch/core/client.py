@@ -45,6 +45,21 @@ def local_sgd_step(task, carry, bx, by, lr: float, beta: float,
             loss.detach())
 
 
+def functional_sgd_step(task, p: PyTree, m: PyTree, bx, by, lr,
+                        beta: float, prox_mu: float, anchor: PyTree):
+    """:func:`local_sgd_step` as a pure function of its inputs, which
+    ``torch.func.vmap`` can batch over clients (the cohort engine): the
+    gradient comes from ``torch.func.grad_and_value``, not from leaves
+    set to require grad. Same arithmetic, ``m = beta*m + g``, ``p = p -
+    lr*m``, and the same FedProx anchor. Returns (p, m, loss)."""
+    prox = (prox_mu, anchor) if prox_mu > 0 else None
+    grads, loss = torch.func.grad_and_value(
+        lambda q: task.loss(q, (bx, by), prox=prox))(p)
+    m = pt.tree_map(lambda mi, g: beta * mi + g, m, grads)
+    p = pt.tree_map(lambda pi, mi: pi - lr * mi, p, m)
+    return p, m, loss
+
+
 def _local_k_steps(task, params: PyTree, mu_state: PyTree, xs, ys, lr: float,
                    beta: float = 0.5, prox_mu: float = 0.0):
     """K optimizer steps over stacked batches xs: (K, bs, ...).
@@ -86,6 +101,19 @@ class Client:
         return float(np.float32(
             self.fed.local_lr * (self.fed.local_lr_decay ** self.round_idx)))
 
+    # --- cohort-engine hooks (repro_torch.core.cohort stacks many clients)
+    def stage_cohort(self, params: PyTree):
+        """The per-client state the cohort engine stacks: (momentum, lr)."""
+        if self._mu is None:
+            self._mu = pt.tree_zeros_like(params)
+        return self._mu, self._lr()
+
+    def commit_cohort(self, mu: PyTree) -> None:
+        """Scatter one cohort row back: the new momentum and the round
+        count, as :meth:`run_local` leaves them."""
+        self._mu = mu
+        self.round_idx += 1
+
     def run_local(self, params: PyTree, k: int, snapshot_iter: int,
                   prox_mu: float = 0.0) -> Tuple[ClientUpdate, float]:
         """K local steps -> (ClientUpdate, mean local loss)."""
@@ -117,6 +145,23 @@ class Client:
         self._residual = vec - compression.dequantize(cd)
         return ClientUpdate(upd.client_id, upd.snapshot_iter, upd.k_used,
                             cd, upd.num_samples)
+
+    def stage_residual(self, spec: pt.FlatSpec) -> torch.Tensor:
+        """The error-feedback row an engine that quantizes on the device
+        folds into this client's delta. ``spec`` is the fan-out's shared
+        flat layout, adopted as this client's, so a later
+        :meth:`compress_update` keeps the same padded length."""
+        if self._flatspec is None:
+            self._flatspec = spec
+        if self._residual is None:
+            return spec.zeros()
+        return self._residual
+
+    def commit_residual(self, residual: torch.Tensor) -> None:
+        """Scatter one refreshed error-feedback row back after the engine
+        compressed this client's delta itself (:meth:`compress_update`
+        no-ops on an update already in wire form)."""
+        self._residual = residual
 
     def release_residual(self) -> None:
         """Drop the error-feedback residual (the client's session ended)."""

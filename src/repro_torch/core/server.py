@@ -7,9 +7,10 @@ device its initial params lie on.
 
 The AsyncFedED server has both backends, both GMIS modes and the per-leaf
 variant, compressed (int8 and bf16) deltas, and the flat backend's batched
-burst drain for every wire form. The baselines mix parameter trees in plain
-torch, as the reference does. Model sharding is a later slice: the server
-raises ``NotImplementedError`` for it.
+burst drain for every wire form, and checkpoints of the global model in the
+JAX package's format. The baselines mix parameter trees in plain torch, as
+the reference does. Model sharding is a later slice: the server raises
+``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import compression, screening
 from repro_torch.core.adaptive_k import AdaptiveK
@@ -220,6 +222,34 @@ class AsyncFedEDServer(AsyncServer):
         """What the GMIS stores: flat vectors under the flat backend (a
         tensor is a one-leaf tree), full trees otherwise."""
         return self._flat.vec if self.backend == "pallas" else self.params
+
+    def save_checkpoint(self, directory: str,
+                        step: Optional[int] = None) -> str:
+        """Persist the global model (default step: the iteration counter).
+        The flat backend saves the PADDED flat vector with its layout
+        (``checkpoint.save_flat``); the tree backend the params tree."""
+        step = self.t if step is None else step
+        if self.backend == "pallas":
+            return checkpoint.save_flat(
+                self._flat.vec, self._flat.spec.n, directory, step,
+                block=self._flat.spec.block, model_shards=1)
+        return checkpoint.save_pytree(self.params, directory, step)
+
+    def restore_checkpoint(self, directory: str,
+                           step: Optional[int] = None) -> None:
+        """Restore the global model saved by :meth:`save_checkpoint`, by
+        this package or the JAX one. A flat checkpoint must hold this
+        model's true-element count and is re-padded to this server's
+        layout."""
+        if self.backend == "pallas":
+            vec, _ = checkpoint.restore_flat(
+                directory, step, n=self._flat.spec.n,
+                n_padded=self._flat.spec.n_padded)
+            self._flat = self._flat.replace(
+                torch.from_numpy(vec).to(self._flat.vec.device))
+        else:
+            self.params = checkpoint.restore_pytree(self.params, directory,
+                                                    step)
 
     def _register(self, client_id: int) -> None:
         if self.gmis_mode == "displacement":
