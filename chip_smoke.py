@@ -35,7 +35,15 @@ population engine (``population``: the lazy table against the materialized
 reference at 256 clients, synthetic-1m built lazily and run, and the wall
 of a 10,000-client copy at the same arrival rate) and checkpoints
 (``checkpoint``: the burst run's flat server saved and restored into a
-fresh server bitwise, and re-padded). ``fedagg_fused``, which no path of
+fresh server bitwise, and re-padded). Last it trains the architectures
+(``arch_train``): the gradients of ``SSDScan`` and ``RGLRUScan`` (the
+kernels forward, the plain versions' VJPs backward) against autograd
+through the plain versions, alone and vmapped over clients; mamba2-1.3b at
+every published width with its depth cut to 4 layers, federated on the
+cohort engine and on the loop engine (equal traces, a falling eval loss),
+with a client step's forward and backward, the SSD VJP's share and the
+fedagg kernels at the model's flat length timed; and the three registered
+arch scenarios on the card against the CPU port. ``fedagg_fused``, which no path of
 either package calls, is held to the bit against ``fedagg_axpy`` and
 ``fedagg_norms``. The line of its
 standard output before the last is the card's name and power limit as
@@ -61,8 +69,10 @@ DIR under the git-ignored ``build/``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -157,6 +167,38 @@ BUDGET_RUNGS = [("vmap width clamped to 16", 16, 10),
 BUDGET_CAP = 10
 #: the cohort run profiled once more (device busy time and idle share)
 PROFILED_COHORT = "synthetic-256"
+#: arch_train (a): mamba2-1.3b (arXiv:2405.21060) at every published width
+#: (d_model 2048, d_state 128, SSD head_dim 64, expand 2, ngroups 1, conv
+#: 4, chunk 256, vocab 50,280), f32, depth cut from 48 to 4 layers; 512
+#: tokens (two chunks: the state crosses one in the forward and the
+#: backward) x batch 4; 4 clients, K 2, the arch baseline otherwise; the
+#: cohort engine, the flat-state server, the auto window, 12 updates; then
+#: the loop engine on the same seed, whose trace must be equal and whose
+#: gamma, eta and eval losses must agree to rtol / atol. The two engines'
+#: products sum in other orders (batched against single cuBLAS calls: the
+#: row's ``step_grad_gap``, 1.1e-7 of the largest gradient element), and
+#: from a random init at loss ~730 (a tied 2048-wide head) twelve updates
+#: of lr 3e-3 with momentum 0.9 carry that to 5.2e-4 of the last eval loss
+#: and 2.4e-4 of a gamma (NVIDIA H100 80GB HBM3, 700.00 W): rtol 2e-3, not
+#: the 1e-4 the reduced runs hold
+ARCH_TRAIN = dict(arch="mamba2-1.3b", num_layers=4, seq_len=512,
+                  global_batch=4, clients=4, k=2, updates=12,
+                  params=206_372_608, rtol=2e-3, atol=1e-5)
+#: the cohort run cut to this many updates under torch.profiler (device
+#: busy time and idle share; every kernel event is read back)
+ARCH_TRAIN_PROFILED = 4
+#: arch_train (b): the registered arch scenarios as configured, cut to an
+#: update count, on the card and on the CPU from the same init; traces
+#: equal, gamma to rtol 1e-3
+ARCH_SCENARIO_RUNS = [("arch-danube-smoke", 8), ("arch-mamba2-smoke", 8),
+                      ("arch-danube-budgeted", 8)]
+ARCH_SCENARIO_RTOL = 1e-3
+#: arch_train (c): the gradient checks of SSDScan (B, S, H, P, G, N, chunk)
+#: and RGLRUScan (B, S, W) against autograd through their plain versions,
+#: alone and vmapped over this many clients with their own inputs
+SSD_GRAD_SHAPE = (4, 512, 64, 64, 1, 128, 256)
+RGLRU_GRAD_SHAPE = (4, 2064, 2560)
+GRAD_CLIENTS = 4
 #: the population phase: table against materialized at N = 256 (a
 #: synthetic-1-1 clone at 40 check-ins per virtual second, flat server,
 #: cohort engine), then synthetic-1m and a 10,000-client copy at the same
@@ -2147,6 +2189,515 @@ def phase_checkpoint(torch, sim) -> None:
     check(repad, "checkpoint: re-padded restore lost the true elements")
 
 
+def scaled_err(got, want) -> float:
+    """The largest error over a sequence of tensors, each relative to the
+    largest |want| of its tensor."""
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def phase_arch_grads(torch, ssd, ssd_ops, rglru, rglru_ops) -> None:
+    """arch_train (c): the gradients of a seeded random linear functional
+    of each scan's outputs, through its Function (the kernel forward, the
+    plain version's VJP backward), against autograd through the plain
+    version: SSDScan at ``SSD_GRAD_SHAPE`` from zero and from a state,
+    RGLRUScan at ``RGLRU_GRAD_SHAPE``, errors relative to the largest
+    gradient within ``SSD_TOL`` and ``RGLRU_ATOL``. Then under
+    ``torch.func.vmap`` over ``GRAD_CLIENTS`` clients, each with its own
+    inputs (its own ``a`` for the SSD), against one call per client: one
+    launch for the vmapped call, one per client for the others. Each row
+    also times, by CUDA events, the forward kernel and the backward (the
+    plain version's VJP, its forward recomputed)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    bs, s, h, p, gr, n, chunk = SSD_GRAD_SHAPE
+    wy, ws = rnd(bs, s, h, p), rnd(bs, h, p, n)
+
+    def ssd_inputs(lead=()):
+        return (rnd(*lead, bs, s, h, p), F.softplus(rnd(*lead, bs, s, h)),
+                -torch.exp(0.3 * rnd(*lead, h)), 0.3 * rnd(*lead, bs, s, gr, n),
+                0.3 * rnd(*lead, bs, s, gr, n), rnd(*lead, bs, h, p, n))
+
+    def ssd_fn(scan, with_h0):
+        def f(x, dt, a, b, c, *h0):
+            y, st = scan(x, dt, a, b, c, chunk, h0[0] if with_h0 else None)
+            return (y * wy).sum() + (st * ws).sum()
+        return f
+
+    for with_h0 in (False, True):
+        nargs = 6 if with_h0 else 5
+        args = ssd_inputs()[:nargs]
+        argnums = tuple(range(nargs))
+        f = ssd_fn(ssd_ops.ssd_chunked, with_h0)
+        ssd.ssd_scan.launches = 0
+        got = torch.func.grad(f, argnums)(*args)
+        single = ssd.ssd_scan.launches
+        want = torch.func.grad(ssd_fn(ssd_ops.ssd_chunked_plain, with_h0),
+                               argnums)(*args)
+        err = scaled_err(got, want)
+        vargs = ssd_inputs((GRAD_CLIENTS,))[:nargs]
+        ssd.ssd_scan.launches = 0
+        vgot = torch.func.vmap(torch.func.grad(f, argnums))(*vargs)
+        folded = ssd.ssd_scan.launches
+        loop = [torch.func.grad(f, argnums)(*(t[i] for t in vargs))
+                for i in range(GRAD_CLIENTS)]
+        verr = max(scaled_err([t[i] for t in vgot], loop[i])
+                   for i in range(GRAD_CLIENTS))
+        tag = {"shape": list(SSD_GRAD_SHAPE), "h0": with_h0}
+        a_rows = args[2].repeat(bs)
+        h0 = args[5] if with_h0 else None
+        fwd = lambda: ssd_ops.SSDScan.apply(*args[:2], a_rows, *args[3:5],
+                                            h0, chunk)
+        vjp = lambda: torch.func.vjp(
+            lambda *t: ssd_ops.ssd_rows_plain(*t[:5], chunk, h0),
+            *args[:2], a_rows, *args[3:5])[1]((wy, ws))
+        emit({"phase": "arch_grad", "name": "SSDScan", **tag,
+              "scaled_err": err, "vmap_scaled_err": verr, "tol": SSD_TOL,
+              "launches": single, "vmap_launches": folded,
+              "clients": GRAD_CLIENTS, "forward_kernel_ms": _events_ms(
+                  torch, fwd), "backward_vjp_ms": _events_ms(torch, vjp)})
+        check(err <= SSD_TOL, f"SSDScan grads {tag}: error {err}")
+        check(verr <= SSD_TOL, f"SSDScan vmapped grads {tag}: error {verr}")
+        check((single, folded) == (1, 1),
+              f"SSDScan {tag}: launches {single}, vmapped {folded}")
+        del args, got, want, vargs, vgot, loop
+        torch.cuda.empty_cache()
+
+    b, s, w = RGLRU_GRAD_SHAPE
+    wh, wl = rnd(b, s, w), rnd(b, w)
+
+    def rg_fn(scan):
+        def f(log_at, xi, h0):
+            hs, last = scan(log_at.contiguous(), xi.contiguous(),
+                            h0.contiguous())
+            return (hs * wh).sum() + (last * wl).sum()
+        return f
+
+    f = rg_fn(rglru_ops.RGLRUScan.apply)
+    args = rglru_inputs(torch, g, b, s, w)
+    rglru.rglru_scan.launches = 0
+    got = torch.func.grad(f, (0, 1, 2))(*args)
+    single = rglru.rglru_scan.launches
+    want = torch.func.grad(rg_fn(rglru.rglru_scan_plain), (0, 1, 2))(*args)
+    err = scaled_err(got, want)
+    vargs = [torch.stack(t) for t in zip(*(rglru_inputs(torch, g, b, s, w)
+                                           for _ in range(GRAD_CLIENTS)))]
+    rglru.rglru_scan.launches = 0
+    vgot = torch.func.vmap(torch.func.grad(f, (0, 1, 2)))(*vargs)
+    folded = rglru.rglru_scan.launches
+    verr = max(scaled_err([t[i] for t in vgot],
+                          torch.func.grad(f, (0, 1, 2))(
+                              *(t[i] for t in vargs)))
+               for i in range(GRAD_CLIENTS))
+    vjp = lambda: torch.func.vjp(rglru.rglru_scan_plain, *args)[1]((wh, wl))
+    emit({"phase": "arch_grad", "name": "RGLRUScan",
+          "shape": list(RGLRU_GRAD_SHAPE), "h0": True, "scaled_err": err,
+          "vmap_scaled_err": verr, "tol": RGLRU_ATOL, "launches": single,
+          "vmap_launches": folded, "clients": GRAD_CLIENTS,
+          "forward_kernel_ms": _events_ms(
+              torch, lambda: rglru_ops.RGLRUScan.apply(*args)),
+          "backward_vjp_ms": _events_ms(torch, vjp, reps=3)})
+    check(err <= RGLRU_ATOL, f"RGLRUScan grads: error {err}")
+    check(verr <= RGLRU_ATOL, f"RGLRUScan vmapped grads: error {verr}")
+    check((single, folded) == (1, 1),
+          f"RGLRUScan: launches {single}, vmapped {folded}")
+    del args, got, want, vargs, vgot
+    torch.cuda.empty_cache()
+
+
+def _arch_train_task():
+    """(a)'s task: the published mamba2-1.3b config with its depth cut
+    and f32 compute, over ``seq_len x global_batch`` token batches."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core.tasks import ArchTask
+
+    cfg = dataclasses.replace(configs.get_arch(ARCH_TRAIN["arch"]),
+                              num_layers=ARCH_TRAIN["num_layers"],
+                              dtype="float32")
+    shape = dataclasses.replace(TRAIN_4K, seq_len=ARCH_TRAIN["seq_len"],
+                                global_batch=ARCH_TRAIN["global_batch"])
+    return ArchTask(cfg=cfg, shape=shape)
+
+
+def _events_ms(torch, fn, reps: int = 5) -> float:
+    """Median CUDA-event ms of ``fn()`` over ``reps`` calls after two
+    unmeasured ones, each call timed alone (host launch work included)."""
+    for _ in range(2):
+        fn()
+    out = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def _client_step_ms(torch, ssd, task, params, batch) -> dict:
+    """One client step of the loop engine (``client.local_sgd_step``'s
+    forward and backward) timed by CUDA events, split into the loss's
+    forward and ``torch.autograd.grad``; the SSD launches of one step; the
+    gradient's leaves (``grads``)."""
+    from repro_torch.utils import pytree as pt
+
+    leaves0, treedef = pt.tree_flatten(params)
+    fwd, bwd = [], []
+    for i in range(7):
+        leaves = [l.detach().requires_grad_(True) for l in leaves0]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ssd.ssd_scan.launches = 0
+        ev[0].record()
+        loss = task.loss(pt.tree_unflatten(treedef, leaves), batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        ev[2].synchronize()
+        if i >= 2:
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+        del loss, leaves
+    return {"forward_ms": statistics.median(fwd),
+            "backward_ms": statistics.median(bwd),
+            "ssd_launches": ssd.ssd_scan.launches, "grads": list(grads)}
+
+
+def _cohort_step(torch, ssd, task, params, batches) -> dict:
+    """One vmapped step of a cohort chunk (``torch.func.vmap`` over the
+    clients of ``grad_and_value`` of the loss, as the cohort engine runs
+    it): its ms, its SSD launches and the first client's gradient leaves
+    (``grads0``)."""
+    from repro_torch.utils import pytree as pt
+
+    c = len(batches)
+    p = pt.tree_map(lambda t: t.expand(c, *t.shape), params)
+    bx = {"tokens": torch.stack([b[0]["tokens"] for b in batches])}
+    by = torch.stack([b[1] for b in batches])
+    step = torch.func.vmap(torch.func.grad_and_value(
+        lambda q, x, y: task.loss(q, (x, y))))
+    ssd.ssd_scan.launches = 0
+    grads, _ = step(p, bx, by)
+    launches = ssd.ssd_scan.launches
+    grads0 = [g[0].clone() for g in pt.tree_leaves(grads)]
+    del grads
+    return {"ms": _events_ms(torch, lambda: step(p, bx, by), reps=3),
+            "ssd_launches": launches, "clients": c, "grads0": grads0}
+
+
+def _grad_gap(torch, params, got, want) -> dict:
+    """How far one step's gradient from the vmapped chunk (``got``) is from
+    the single client step's (``want``) on the same params and batch: the
+    largest error over the largest |want|, over the whole flat gradient and
+    for the leaf where it is largest relative to its own."""
+    names = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        else:
+            names.append("/".join(path))
+    walk(params, ())
+    flat = lambda ls: torch.cat([t.reshape(-1) for t in ls])
+    per_leaf = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(got, want)]
+    worst = max(range(len(per_leaf)), key=per_leaf.__getitem__)
+    return {"flat": scaled_err([flat(got)], [flat(want)]),
+            "worst_leaf": names[worst], "worst_leaf_gap": per_leaf[worst]}
+
+
+def _ssd_layer_ms(torch, ssd_ops, cfg, bs: int, s: int) -> dict:
+    """At one layer's scan shape: the forward kernel's ms and the ms of the
+    SSDScan backward (the plain version's VJP, its forward recomputed), by
+    CUDA events."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm as SSM
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(12)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    _, h, p, n = SSM.ssd_dims(cfg)
+    gr, chunk = cfg.ssm.ngroups, min(cfg.ssm.chunk_size, s)
+    x, dt = rnd(bs, s, h, p), F.softplus(rnd(bs, s, h))
+    a_rows = -torch.exp(0.3 * rnd(h)).repeat(bs)
+    b, c = 0.3 * rnd(bs, s, gr, n), 0.3 * rnd(bs, s, gr, n)
+    gy, gs = rnd(bs, s, h, p), rnd(bs, h, p, n)
+
+    def vjp():
+        _, fn = torch.func.vjp(
+            lambda *t: ssd_ops.ssd_rows_plain(*t, chunk), x, dt, a_rows, b, c)
+        return fn((gy, gs))
+    return {"shape": [bs, s, h, p, gr, n, chunk],
+            "forward_kernel_ms": _events_ms(
+                torch, lambda: ssd_ops.SSDScan.apply(x, dt, a_rows, b, c,
+                                                     None, chunk)),
+            "backward_vjp_ms": _events_ms(torch, vjp)}
+
+
+def _fedagg_at(torch, fedagg, n: int, b: int) -> list:
+    """The fedagg kernels of the flat server at the model's padded length
+    ``n`` (each input read from device memory: 826 MB a vector), timed by a
+    CUDA graph against their bounds (``norms_work``,
+    ``apply_batched_work``; the AXPY is the B = 1 apply), the batched pair
+    at burst size ``b``. The norms are held against their plain version's
+    formula evaluated in f64 (at 2e8 terms the f32 plain version's own sum
+    is off by up to ~1e-4, which the row reports), the AXPY against its
+    plain version to the ulp and the apply to the bit."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(n, device=dev, generator=g)
+    xs = x + 0.01 * torch.randn(b, n, device=dev, generator=g)
+    d = 0.05 * torch.randn(b, n, device=dev, generator=g)
+    eta = torch.full((), 0.37, device=dev)
+    etas = torch.linspace(0.1, 0.9, b, device=dev)
+
+    def norms_f64():
+        s0, d0 = x.double() - xs[0].double(), d[0].double()
+        return torch.stack([torch.sum(s0 * s0), torch.sum(d0 * d0)])
+
+    def batched_f64():
+        s0, d0 = x.double()[None] - xs.double(), d.double()
+        return (torch.sum(s0 * s0, dim=1), torch.sum(d0 * d0, dim=1),
+                s0 @ d0.T, d0 @ d0.T)
+
+    rel = lambda u, v: float(((u.double() - v).abs() / v.abs()).max())
+    batched_err = lambda u, v: max(batched_errors(
+        [t.double() for t in u], v)[:2])
+    axpy_err = lambda u, v: float((u - v).abs().max() / v.abs().max())
+    cases = [
+        ("fedagg_norms", lambda: fedagg.fedagg_norms(x, xs[0], d[0]),
+         lambda: fedagg.norms_plain(x, xs[0], d[0]), norms_f64,
+         fedagg.norms_work(n), rel, 1e-5),
+        ("fedagg_axpy", lambda: fedagg.fedagg_axpy(x, d[0], eta),
+         lambda: fedagg.axpy_plain(x, d[0], eta), None,
+         fedagg.apply_batched_work(1, n), axpy_err, 1e-7),
+        ("fedagg_norms_batched",
+         lambda: fedagg.fedagg_norms_batched(x, xs, d),
+         lambda: fedagg.norms_batched_plain(x, xs, d), batched_f64,
+         fedagg.norms_batched_work(b, n), batched_err, 1e-5),
+        ("fedagg_apply_batched",
+         lambda: fedagg.fedagg_apply_batched(x, d, etas),
+         lambda: fedagg.apply_batched_plain(x, d, etas), None,
+         fedagg.apply_batched_work(b, n), axpy_err, 0.0)]
+    rows = []
+    for name, fn, plain, f64, (nbytes, flops), err_fn, tol in cases:
+        want = plain() if f64 is None else f64()
+        err = err_fn(fn(), want)
+        plain_err = None if f64 is None else err_fn(plain(), want)
+        del want
+        check(err <= tol, f"{name} at n={n}: error {err} > {tol}")
+        ms = device_ms(fn, reps=3, trials=5)
+        plain_ms = device_ms(plain, reps=1, trials=3)
+        bms, by = bound_ms(nbytes, flops)
+        rows.append({"name": name, "n": n,
+                     "B": b if "batched" in name else 1, "err": err,
+                     "tol": tol, "reference": "f64" if f64 else "plain",
+                     "plain_err_vs_f64": plain_err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                     "of_bound": bms / ms})
+    del x, xs, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_arch_train(torch, fedagg, ssd, ssd_ops, launches: dict) -> dict:
+    """arch_train (a): mamba2-1.3b at full width (``ARCH_TRAIN``) trained
+    federated on the cohort engine, then on the loop engine, after an
+    unmeasured warm-up; the traces must be equal, gamma, eta and the eval
+    losses agree, and the eval loss fall from the first eval to the last. Every launch count is set to 0
+    just before each run and read just after. Then: a client step's
+    forward and backward, a cohort chunk's step, the SSD layer's forward
+    kernel against its backward (the plain VJP), the vmapped step's
+    gradient against the single step's on the same batch, the fedagg
+    kernels at the model's flat length, and the cohort run cut to ``ARCH_TRAIN_PROFILED``
+    updates under torch.profiler. Returns the launch counts of both
+    runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.simulator import FederatedSimulation
+    from repro_torch.utils import pytree as pt
+
+    task = _arch_train_task()
+    fed_c = dataclasses.replace(
+        task.fed, num_clients=ARCH_TRAIN["clients"],
+        k_initial=ARCH_TRAIN["k"], client_engine="cohort", backend="pallas",
+        batch_window="auto")
+    fed_l = dataclasses.replace(fed_c, client_engine="loop")
+    cap = ARCH_TRAIN["updates"]
+    # an unmeasured warm-up (the seeding fan-out, one update, the evals)
+    _timed_sim(torch, fedagg, task, fed_c, 1, "cuda", seed=1)
+    runs = {}
+    for fed in (fed_c, fed_l):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssd.ssd_scan.launches = 0
+        row, res, sizes, counts, sim = _timed_sim(torch, fedagg, task, fed,
+                                                  cap, "cuda")
+        counts = {**counts, "ssd_scan": ssd.ssd_scan.launches}
+        row["launches"] = counts
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        _check_drain_launches(f"arch_train {fed.client_engine}", sim, res,
+                              sizes, {k: v for k, v in counts.items()
+                                      if k != "ssd_scan"})
+        _add(launches, counts)
+        n_params = pt.tree_size(sim.server.params)
+        n_flat = sim.server._flat.spec.n_padded
+        # the final model (a copy), for the step timings below; one run's
+        # server, GMIS and clients (~20 GiB) are let go before the next
+        params = pt.tree_map(lambda t: t.detach().clone(), sim.server.params)
+        runs[fed.client_engine] = (row, res, sizes, counts)
+        del sim
+    (row_c, res_c, sizes_c, counts_c) = runs["cohort"]
+    (row_l, res_l, _, counts_l) = runs["loop"]
+    layers = task.cfg.num_layers
+    same = _key(res_c.history) == _key(res_l.history)
+    # per quantity, the largest |cohort - loop| over (atol + rtol |loop|):
+    # at most 1 where they agree
+    excess = lambda u, v: max(
+        (abs(a - b) / (ARCH_TRAIN["atol"] + ARCH_TRAIN["rtol"] * abs(b))
+         if math.isfinite(a) else math.inf for a, b in zip(u, v)),
+        default=0.0)
+    gaps = {f: excess([getattr(h, f) for h in res_c.history],
+                      [getattr(h, f) for h in res_l.history])
+            for f in ("gamma", "eta")}
+    losses_c = [p.loss for p in res_c.points]
+    losses_l = [p.loss for p in res_l.points]
+    gaps["eval_loss"] = (excess(losses_c, losses_l)
+                         if len(losses_c) == len(losses_l) else math.inf)
+    emit({"phase": "arch_train_runs", "cohort": row_c, "loop": row_l,
+          "trace_identical": same, "excess": gaps,
+          "gamma_cohort": [h.gamma for h in res_c.history],
+          "gamma_loop": [h.gamma for h in res_l.history],
+          "eta_cohort": [h.eta for h in res_c.history],
+          "eta_loop": [h.eta for h in res_l.history],
+          "eval_loss_cohort": losses_c, "eval_loss_loop": losses_l})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a client step, a cohort chunk's step, the SSD layer, at this size
+    batches = [task.to_device(task.make_batcher(0, 0, seed=90 + i).next(),
+                              torch.device("cuda:0"))
+               for i in range(ARCH_TRAIN["clients"])]
+    step = _client_step_ms(torch, ssd, task, params, batches[0])
+    chunk_step = _cohort_step(torch, ssd, task, params, batches)
+    grad_gap = _grad_gap(torch, params, chunk_step.pop("grads0"),
+                         step.pop("grads"))
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = _ssd_layer_ms(torch, ssd_ops, task.cfg,
+                          ARCH_TRAIN["global_batch"], ARCH_TRAIN["seq_len"])
+    vjp_share = layers * layer["backward_vjp_ms"] / step["backward_ms"]
+    torch.cuda.empty_cache()
+    fed_rows = _fedagg_at(torch, fedagg, n_flat,
+                          max([b for b in sizes_c if b > 1], default=2))
+
+    # the cohort run once more, cut, under the profiler
+    sim = FederatedSimulation(task, fed_c, "asyncfeded", seed=0,
+                              device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(max_time=1e9, eval_every=5, max_updates=ARCH_TRAIN_PROFILED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_row = device_summary(prof, wall)
+    del sim, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "arch_train", "model": ARCH_TRAIN["arch"],
+          "params": n_params, "flat_n": n_flat, "layers": layers,
+          "published_layers": 48, "seq_len": ARCH_TRAIN["seq_len"],
+          "global_batch": ARCH_TRAIN["global_batch"],
+          "clients": ARCH_TRAIN["clients"], "k": ARCH_TRAIN["k"],
+          "cap": cap, "trace_identical": same, "excess": gaps,
+          "rtol": ARCH_TRAIN["rtol"], "atol": ARCH_TRAIN["atol"],
+          "wall_s": {"cohort": row_c["wall_s"], "loop": row_l["wall_s"]},
+          "peak_gib": {"cohort": row_c["peak_gib"],
+                       "loop": row_l["peak_gib"]},
+          "first_eval_loss": losses_c[0], "last_eval_loss": losses_c[-1],
+          "burst_sizes": {str(b): sizes_c.count(b)
+                          for b in sorted(set(sizes_c))},
+          "client_step": {**step, "total_ms": step["forward_ms"]
+                          + step["backward_ms"]},
+          "cohort_chunk_step": chunk_step, "ssd_layer": layer,
+          "step_grad_gap": grad_gap,
+          "backward_share_ssd_vjp": vjp_share,
+          "ssd_launches_per_client_step": step["ssd_launches"],
+          "ssd_launches_per_cohort_chunk_step": chunk_step["ssd_launches"],
+          "fedagg_at_model_length": fed_rows,
+          "profile": {"updates": ARCH_TRAIN_PROFILED, **prof_row}})
+    check(n_params == ARCH_TRAIN["params"],
+          f"arch_train: {n_params} params, expected {ARCH_TRAIN['params']}")
+    check(res_c.total_updates >= cap and res_c.plan["engine"] == "cohort",
+          f"arch_train: {res_c.total_updates} updates, plan {res_c.plan}")
+    check(same, "arch_train: cohort and loop traces differ")
+    check(max(gaps.values()) <= 1.0, f"arch_train: cohort and loop "
+          f"disagree beyond atol + rtol |loop| ({gaps})")
+    check(losses_c[-1] < losses_c[0], f"arch_train: eval loss did not fall "
+          f"({losses_c[0]} -> {losses_c[-1]})")
+    check(step["ssd_launches"] == layers
+          and chunk_step["ssd_launches"] == layers,
+          f"arch_train: SSD launches per step {step['ssd_launches']}, per "
+          f"chunk step {chunk_step['ssd_launches']}, expected {layers}")
+    check(counts_c["ssd_scan"] > 0 and counts_c["ssd_scan"] % layers == 0,
+          f"arch_train: cohort run's SSD launches {counts_c['ssd_scan']}")
+    return {"cohort": counts_c, "loop": counts_l}
+
+
+def phase_arch_scenarios(torch, ssd, launches: dict) -> None:
+    """arch_train (b): each registered arch scenario as configured (cohort
+    engine, auto window, its size and budget), cut to an update count, on
+    the card and then on the CPU port from the same init: traces equal,
+    gamma to ``ARCH_SCENARIO_RTOL``; the budgeted scenario's plan is
+    printed."""
+    from repro_torch import configs
+    from repro_torch.core import tasks
+    from repro_torch.core.simulator import FederatedSimulation
+    from repro_torch.utils import pytree as pt
+
+    for name, cap in ARCH_SCENARIO_RUNS:
+        fed = configs.SCENARIOS[name].fed
+        task = tasks.as_task(name)
+        init = task.init(torch.Generator().manual_seed(0), "cpu")
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ssd.ssd_scan.launches = 0
+            sim = FederatedSimulation(task, fed, "asyncfeded", seed=0,
+                                      device=dev, init_params=init)
+            t0 = time.perf_counter()
+            res = sim.run(max_time=1e9, eval_every=5, max_updates=cap)
+            out[dev] = (res, time.perf_counter() - t0, ssd.ssd_scan.launches)
+        (res, wall, n_ssd), (res_cpu, wall_cpu, _) = out["cuda"], out["cpu"]
+        _add(launches, {"ssd_scan": n_ssd})
+        same = _key(res.history) == _key(res_cpu.history)
+        gam, gam_cpu = ([h.gamma for h in r.history] for r in (res, res_cpu))
+        gap = max((abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(gam, gam_cpu)), default=0.0)
+        emit({"phase": "arch_scenario", "scenario": name, "cap": cap,
+              "arch": task.cfg.arch_id, "params": pt.tree_size(init),
+              "updates": res.total_updates, "drains": res.total_drains,
+              "wall_s": wall, "cpu_wall_s": wall_cpu, "plan": res.plan,
+              "eval_loss": [p.loss for p in res.points],
+              "cpu_eval_loss": [p.loss for p in res_cpu.points],
+              "trace_identical": same, "gamma_max_rel_gap": gap,
+              "rtol": ARCH_SCENARIO_RTOL, "ssd_launches": n_ssd})
+        check(res.total_updates >= cap, f"{name}: {res.total_updates} "
+              "updates")
+        check(same, f"{name}: CUDA and CPU traces differ")
+        check(gap <= ARCH_SCENARIO_RTOL, f"{name}: gamma gap {gap}")
+        check(task.cfg.arch_id != "mamba2-1.3b" or n_ssd > 0,
+              f"{name}: no SSD launch")
+        check(fed.memory_budget_mb == 0 or res.plan["reason"] != "fits",
+              f"{name}: budgeted plan {res.plan}")
+
+
 def phase_profile(torch) -> None:
     """synthetic-1-1 and femnist once more under torch.profiler: device
     busy time (the sum of the device-side events), the idle share of the
@@ -2217,6 +2768,7 @@ def main(argv) -> int:
         from repro_torch.core import compression
         from repro_torch.kernels import build
         from repro_torch.kernels.fedagg import fedagg
+        from repro_torch.kernels.rglru import ops as rglru_ops
         from repro_torch.kernels.rglru import rglru
         from repro_torch.kernels.ssd import ops as ssd_ops
         from repro_torch.kernels.ssd import ssd
@@ -2279,9 +2831,17 @@ def main(argv) -> int:
     phase_population(torch, fedagg, launches)
     t5 = time.perf_counter()
     phase_checkpoint(torch, burst_sim)
+    t6 = time.perf_counter()
+    phase_arch_grads(torch, ssd, ssd_ops, rglru, rglru_ops)
+    t7 = time.perf_counter()
+    phase_arch_train(torch, fedagg, ssd, ssd_ops, launches)
+    t8 = time.perf_counter()
+    phase_arch_scenarios(torch, ssd, launches)
     emit({"phase": "phase_seconds", "comparison": t1 - t0,
           "attack": t2 - t1, "cohort": t3 - t2, "budget": t4 - t3,
-          "population": t5 - t4, "checkpoint": time.perf_counter() - t5})
+          "population": t5 - t4, "checkpoint": t6 - t5,
+          "arch_grads": t7 - t6, "arch_train": t8 - t7,
+          "arch_scenarios": time.perf_counter() - t8})
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"

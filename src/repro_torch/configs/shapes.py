@@ -1,14 +1,24 @@
-"""The stacked-cohort footprint law the memory-budget planner applies
+"""The training input shape of the architecture tasks, and the
+stacked-cohort footprint law the memory-budget planner applies
 (``repro_torch.core.budget``).
 
 The law is pure shape arithmetic — no tensors, no allocation — so the
-planner can evaluate it before any model state exists. The constants and
-formulas are the JAX package's (``repro/configs/shapes.py``), so one
-``FedConfig`` plans the same fan-outs in both packages.
+planner can evaluate it before any model state exists. The shape, the
+constants and the formulas are the JAX package's
+(``repro/configs/shapes.py``), so one ``FedConfig`` plans the same fan-outs
+in both packages.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+from repro_torch.configs.base import SHAPES, ShapeConfig
+
+#: the assigned training shape; ``core.tasks.arch_task`` cuts its sequence
+#: and batch to the run's
+TRAIN_4K = ShapeConfig(name="train_4k", seq_len=4_096, global_batch=256,
+                       kind="train")
+SHAPES.register(TRAIN_4K.name)(TRAIN_4K)
 
 #: Stacked per-client parameter-state copies a cohort dispatch holds live:
 #: the params row, the momentum row, the delta output row, and one

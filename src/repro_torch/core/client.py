@@ -4,7 +4,9 @@
 A client downloads (x_t, K), performs K local SGD-with-momentum steps on
 mini-batches of its own dataset (Eq. 2), and uploads the pseudo-gradient
 Delta = x_K - x_0 (Eq. 4): momentum 0.5 with per-round lr decay 0.995
-(Appendix B.4). The K batches are drawn in one ``next_stacked(k)`` call,
+(Appendix B.4). The loss, sampler and batch layout come from the task, so
+the same client trains the paper's MLP rows and an arch task's token
+dicts. The K batches are drawn in one ``next_stacked(k)`` call,
 which leaves the sampler exactly where k ``next()`` calls would, and are
 moved to the device once. With ``FedConfig.delta_compression`` set, the
 simulator puts each update in wire form through :meth:`Client.compress_update`,
@@ -62,11 +64,13 @@ def functional_sgd_step(task, p: PyTree, m: PyTree, bx, by, lr,
 
 def _local_k_steps(task, params: PyTree, mu_state: PyTree, xs, ys, lr: float,
                    beta: float = 0.5, prox_mu: float = 0.0):
-    """K optimizer steps over stacked batches xs: (K, bs, ...).
+    """K optimizer steps over stacked batches xs: (K, bs, ...), leaf by
+    leaf when the inputs are a dict (the arch tasks' tokens).
     Returns (delta, new_momentum, mean_loss)."""
     carry, losses = (params, mu_state), []
-    for k in range(xs.shape[0]):
-        carry, loss = local_sgd_step(task, carry, xs[k], ys[k], lr, beta,
+    for k in range(ys.shape[0]):
+        bx = pt.tree_map(lambda a: a[k], xs)
+        carry, loss = local_sgd_step(task, carry, bx, ys[k], lr, beta,
                                      prox_mu, params)
         losses.append(loss)
     new_params, new_mu = carry

@@ -7,7 +7,11 @@ stacks per-client state along a leading client axis — params snapshot,
 momentum, learning rate, FedProx anchor and the K mini-batches — and
 trains the whole cohort with ``torch.func.vmap`` over clients of
 :func:`~repro_torch.core.client.functional_sgd_step`, one batched step per
-local step, in a Python loop over K.
+local step, in a Python loop over K. Batches are the substrate's ``(inputs,
+targets)`` pairs; inputs may be a dict (the arch tasks' tokens), stacked
+leaf by leaf. An arch model's scans fold the client axis into their
+kernels' batch axis (``SSDScan`` / ``RGLRUScan``), one launch per layer
+and step for the whole chunk.
 
 * Uniform K (sync rounds, the async seeding): the loop runs exactly K
   steps.
@@ -93,8 +97,9 @@ def _steps(task, p0: PyTree, mu: PyTree, xs, ys, lrs: torch.Tensor,
     step = torch.func.vmap(one)
     p, m = p0, mu
     loss_sum = torch.zeros(lrs.shape, dtype=torch.float32, device=lrs.device)
-    for k in range(xs.shape[1]):
-        p2, m2, loss = step(p, m, xs[:, k], ys[:, k], lrs, p0)
+    for k in range(ys.shape[1]):
+        p2, m2, loss = step(p, m, pt.tree_map(lambda a: a[:, k], xs),
+                            ys[:, k], lrs, p0)
         if mask is None:
             p, m = p2, m2
             loss_sum = loss_sum + loss
@@ -105,13 +110,22 @@ def _steps(task, p0: PyTree, mu: PyTree, xs, ys, lrs: torch.Tensor,
     return pt.tree_sub(p, p0), m, loss_sum
 
 
-def _pad_steps(a: np.ndarray, k_pad: int) -> np.ndarray:
-    """Pad a ``(k, bs, ...)`` batch array to ``k_pad`` steps by repeating
-    its last batch (valid data, masked out, never applied)."""
-    k = a.shape[0]
+def _pad_steps(batch, k_pad: int):
+    """Pad a ``(k, bs, ...)`` batch array, or a dict of them, to ``k_pad``
+    steps by repeating its last batch (valid data, masked out, never
+    applied)."""
+    k = pt.tree_leaves(batch)[0].shape[0]
     if k == k_pad:
-        return a
-    return np.concatenate([a, np.repeat(a[-1:], k_pad - k, axis=0)])
+        return batch
+    return pt.tree_map(
+        lambda a: np.concatenate([a, np.repeat(a[-1:], k_pad - k, axis=0)]),
+        batch)
+
+
+def _np_stack(rows):
+    """Per-client batch rows stacked along a new client axis, leaf by leaf
+    (inputs may be dicts of arrays)."""
+    return pt.tree_map(lambda *ls: np.stack(ls), *rows)
 
 
 def _run_chunk(task, fed, p_src, mus, lrs_list, x_rows, y_rows,
@@ -130,10 +144,10 @@ def _run_chunk(task, fed, p_src, mus, lrs_list, x_rows, y_rows,
 
     # batches: stacked on the host, moved to the device one segment at a
     # time; padded client rows repeat row 0's batches with lr 0
-    xs = np.stack([_pad_steps(x, k_pad) for x in x_rows]
-                  + [_pad_steps(x_rows[0], k_pad)] * (c_pad - c_real))
-    ys = np.stack([_pad_steps(y, k_pad) for y in y_rows]
-                  + [_pad_steps(y_rows[0], k_pad)] * (c_pad - c_real))
+    xs = _np_stack([_pad_steps(x, k_pad) for x in x_rows]
+                   + [_pad_steps(x_rows[0], k_pad)] * (c_pad - c_real))
+    ys = _np_stack([_pad_steps(y, k_pad) for y in y_rows]
+                   + [_pad_steps(y_rows[0], k_pad)] * (c_pad - c_real))
     lrs = torch.zeros((c_pad,), dtype=torch.float32)
     lrs[:c_real] = torch.tensor(lrs_list, dtype=torch.float32)
     lrs = lrs.to(device)
@@ -161,7 +175,8 @@ def _run_chunk(task, fed, p_src, mus, lrs_list, x_rows, y_rows,
     loss_sum = torch.zeros((c_pad,), dtype=torch.float32, device=device)
     for s0 in range(0, k_pad, seg):
         s1 = min(s0 + seg, k_pad)
-        bx, by = task.to_device((xs[:, s0:s1], ys[:, s0:s1]), device)
+        bx, by = task.to_device((pt.tree_map(lambda a: a[:, s0:s1], xs),
+                                 ys[:, s0:s1]), device)
         d, mu, l_seg = _steps(task, p, mu, bx, by, lrs,
                               None if mask is None else mask[:, s0:s1],
                               fed.local_momentum, prox_mu)

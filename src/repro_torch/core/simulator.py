@@ -2,7 +2,9 @@
 
 Layers, composed here:
 
-* **task substrate** (repro_torch.core.tasks) — *what* the clients train;
+* **task substrate** (repro_torch.core.tasks) — *what* the clients train:
+  the paper's three models, or an assigned architecture (``ArchTask``),
+  whose eval batch is a token dict;
 * **event runtime** (repro_torch.core.events) — virtual clock, arrival
   events, the drain loop and its batch-window policies;
 * **client behavior** (repro_torch.core.behavior) — *when* updates land:

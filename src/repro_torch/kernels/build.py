@@ -10,7 +10,9 @@ build only.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``. The checks, the stream lookup and the
-SM count that the kernel wrappers use before a launch are here too.
+SM count that the kernel wrappers use before a launch are here too, with
+the guard that refuses a launch which would cut a gradient and the fold that
+the scans' vmap rules share.
 """
 from __future__ import annotations
 
@@ -113,12 +115,49 @@ def build_log(source: Path) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when a kernel launch would lose a gradient: a kernel writes
+    into fresh outputs that autograd does not see, and it reads raw
+    pointers, which a ``torch.func`` transform's wrapped tensors do not
+    have. ``what`` names the input in the message. The differentiable entry
+    points (``ssd.ops.SSDScan``, ``rglru.ops.RGLRUScan``) call their kernels
+    on unwrapped tensors with grad mode off, so only a direct call reaches
+    this."""
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            continue
+        if torch._C._functorch.is_functorch_wrapped_tensor(t):
+            raise RuntimeError(
+                f"{what} is a tensor of a torch.func transform: the kernel "
+                "has no vmap or grad rule here (call the differentiable "
+                "entry point)")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{what} requires grad with grad mode on: the kernel has no "
+                "backward, so the gradient would be lost (call it under "
+                "torch.no_grad())")
+
+
+def fold_vmapped(t, dim, n: int):
+    """A vmapped operand of a vmap rule with its client axis folded into
+    its leading axis: (C, B, ...) -> (C * B, ...). ``dim`` is the client
+    axis, None when the operand is not batched (it is expanded first); a
+    None operand stays None."""
+    if t is None:
+        return None
+    t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+
 def check_tensor(name: str, t: torch.Tensor, dtypes, shape,
                  device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous tensor of one of ``dtypes``, of
-    ``shape``, on ``device`` and, on CUDA, 16-byte aligned."""
+    ``shape``, on ``device`` and, on CUDA, 16-byte aligned and free of
+    autograd (:func:`refuse_autograd`)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if device.type == "cuda":
+        refuse_autograd(f"kernel input {name}", t)
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

@@ -86,7 +86,9 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         xk, dtk, bk, ck = xf[:, sl], dtf[:, sl], bf[:, sl], cf[:, sl]
         da_cum = torch.cumsum(dtk * af[:, None], dim=1)              # (BH, L)
         seg = da_cum[:, :, None] - da_cum[:, None, :]                # (BH, L, L)
-        lmat = torch.where(causal, torch.exp(seg), 0.0)
+        # masked before the exp: above the diagonal seg is positive and
+        # exp(seg) can overflow, and 0 * inf would poison the VJP
+        lmat = torch.exp(torch.where(causal, seg, float("-inf")))
         scores = ck @ bk.transpose(1, 2)                             # (BH, L, L)
         xdt = xk * dtk[..., None]                                    # (BH, L, P)
         y_diag = (scores * lmat) @ xdt

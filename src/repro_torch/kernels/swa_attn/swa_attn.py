@@ -107,7 +107,10 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     Replaces the JAX package's
     ``kernels/swa_attn/swa_attn.py::swa_decode_attention``
-    (``_swa_decode_kernel``). Bound by device memory: it must read the
+    (``_swa_decode_kernel``). Decode only, on either device: it raises
+    when an input requires grad with grad mode on, or under a
+    ``torch.func`` transform (``build.refuse_autograd``), rather than hand
+    back an output with no gradient. Bound by device memory: it must read the
     valid slots of K and V once, 2 * valid * KV * D elements per sequence,
     for 4 flops per element and query head (at the RecurrentGemma-2B serve
     shape 16.8 MB, 5.0 us at 3.35 TB/s). The kernel cuts the cache into
@@ -125,6 +128,8 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     bf16 rows of a multiple of 16 bytes are copied 16 bytes at a time,
     others (D % 8 == 4) 8 at a time.
     """
+    build.refuse_autograd("an input of swa_decode_attention (decode only)",
+                          q, k_cache, v_cache)
     if not isinstance(q, torch.Tensor) or q.dim() != 3:
         raise ValueError("q must be a (B, H, D) tensor")
     b, h, d = q.shape

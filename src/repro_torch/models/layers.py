@@ -10,7 +10,7 @@ hand-written kernel of ``repro_torch.kernels.swa_attn`` on CUDA; the dense
 products stay plain ``torch`` ops, as the JAX package leaves them to XLA.
 
 The audio (multi-codebook) and vision front ends are not ported: they raise
-``NotImplementedError`` naming ROADMAP.md A18.
+``NotImplementedError`` naming ROADMAP.md A18b.
 """
 from __future__ import annotations
 
@@ -308,7 +308,7 @@ def _text_only(cfg: ModelConfig) -> None:
     if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
             f"the {cfg.family} front end of {cfg.arch_id} is not ported yet "
-            "(ROADMAP.md A18)")
+            "(ROADMAP.md A18b)")
 
 
 def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -335,3 +335,30 @@ def head_fwd(p_head, p_embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, p_embed["tok"].to(dt))
     return torch.einsum("bsd,dv->bsv", x, p_head["out"].to(dt))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  impl: str = "gather") -> torch.Tensor:
+    """Mean next-token cross entropy in f32. logits (..., V); labels (...)
+    integer ids; ``mask`` (...) weights the positions (a masked mean).
+
+    ``impl="gather"`` picks each gold logit by its index;
+    ``impl="onehot"`` selects it with an iota comparison and a sum over
+    the vocabulary, the JAX package's form for vocab-sharded logits. Both
+    give the reference's ``models/layers.py::cross_entropy``.
+    """
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    if impl == "onehot":
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(iota == labels[..., None], logits, 0.0),
+                         dim=-1)
+    elif impl == "gather":
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        raise ValueError(f"unknown cross-entropy impl {impl!r}")
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -11,12 +11,13 @@ index in Python.
 It has the attention and RG-LRU blocks with dense MLPs (the
 recurrentgemma-2b and h2o-danube-1.8b configurations) and the Mamba-2 SSD
 block, a norm and the SSD mixer with no MLP (mamba2-1.3b). Mixture-of-experts
-MLPs (ROADMAP.md A18) raise ``NotImplementedError``.
+MLPs (ROADMAP.md A18b) raise ``NotImplementedError``.
 
 Public entry points:
   model_defs(cfg)                  -> ParamDef tree
   init_model(gen, cfg)             -> materialized params on gen's device
-  forward(params, tokens, cfg, ...) -> logits, aux, caches|None (prefill)
+  forward(params, tokens, cfg, ...) -> logits, aux, caches|None (training,
+                                      prefill)
   cache_specs(cfg, batch, len, window) -> decode-cache shapes and dtypes
   init_cache(cfg, batch, len, window, device) -> zeroed decode caches
   decode_step(params, cache, tokens, index, cfg) -> logits, new cache
@@ -48,7 +49,7 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
         raise ValueError(kind)
     if cfg.moe is not None:
         raise NotImplementedError(
-            "mixture-of-experts MLPs are not ported yet (ROADMAP.md A18)")
+            "mixture-of-experts MLPs are not ported yet (ROADMAP.md A18b)")
 
 
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, PyTree]:
@@ -211,8 +212,15 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
     window: 0 -> cfg.sliding_window (natively windowed archs) else full attn.
     collect_cache: also return per-layer (k, v) / states for decode handoff.
     logits_slice: if set, only the last `logits_slice` positions get logits.
-    remat: accepted for the reference's signature; there is no backward
-    pass here, so it changes nothing.
+    remat: accepted for the reference's signature; the activations are kept
+    for the backward pass, not recomputed.
+
+    With ``collect_cache=False`` (training) the forward is differentiable
+    and ``torch.func.vmap`` can batch it over clients: the scans go through
+    ``SSDScan`` / ``RGLRUScan`` (their kernels forward on CUDA, their plain
+    versions' VJPs backward), attention through the plain-torch
+    :func:`~repro_torch.models.layers.chunked_attention`, whose block
+    choices depend on shapes alone.
     """
     del remat
     pat, n_groups, tail = _grouping(cfg)

@@ -6,12 +6,12 @@ Recurrence (per channel):
     a_t = a ** (c * r_t),  a = sigmoid(Lambda),  c = 8
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill goes through the hand-written scan kernel of
-``repro_torch.kernels.rglru`` on CUDA (its plain version, a step-by-step
-loop, on the CPU); decode is the O(1) step in plain torch, as the JAX
-package has no kernel for it. The block wraps the recurrence Griffin-style:
-two branches (conv1d->RG-LRU and GeLU), multiplied, then an output
-projection.
+Training and prefill go through ``repro_torch.kernels.rglru.ops.RGLRUScan``:
+the hand-written scan kernel on CUDA (its plain version, a step-by-step
+loop, on the CPU), the plain version's VJP as the backward; decode is the
+O(1) step in plain torch, as the JAX package has no kernel for it. The
+block wraps the recurrence Griffin-style: two branches (conv1d->RG-LRU and
+GeLU), multiplied, then an output projection.
 """
 from __future__ import annotations
 

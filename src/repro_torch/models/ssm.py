@@ -1,10 +1,11 @@
 """Mamba-2 SSD block (state-space duality, arXiv:2405.21060).
 
-Prefill uses the chunked block decomposition: intra-chunk attention-like
-dense products plus the inter-chunk state recurrence. It goes through
-``repro_torch.kernels.ssd.ops``: the hand-written ``ssd_scan`` kernel on
-CUDA, whether or not a starting state is given, and the kernel's plain
-version on the CPU. Decode is the O(1) recurrent update in plain torch, as the
+Training and prefill use the chunked block decomposition: intra-chunk
+attention-like dense products plus the inter-chunk state recurrence. It goes
+through ``repro_torch.kernels.ssd.ops.SSDScan``: the hand-written
+``ssd_scan`` kernel on CUDA, whether or not a starting state is given, and
+the kernel's plain version on the CPU, with the plain version's VJP as the
+backward and one launch for a vmapped cohort. Decode is the O(1) recurrent update in plain torch, as the
 JAX package has no kernel for it. :func:`ssd_chunked` is the JAX package's
 model-path scan, kept as the reference writes it; here it is the kernel's
 oracle. The depthwise causal conv1d is shared with the RG-LRU block.

@@ -15,6 +15,17 @@ ssd_scan: 1e-4 of the largest |y| (and of the largest |state|) against the
 plain version, whose products cuBLAS sums in another order over up to
 L * N = 32,768 terms. Model logits on the card against the CPU: rtol/atol
 1e-4, as the CPU tests hold the port to the reference.
+
+Training (``SSDScan``, ``RGLRUScan``): the gradients of a random linear
+functional of each scan's outputs against autograd through the plain
+version, and vmapped over clients against one call per client, to 1e-4 of
+the largest gradient (SSD) and 1e-5 (RG-LRU); a two-layer full-width
+mamba2-1.3b cohort fan-out against the loop engine's client steps, losses
+to rtol 1e-5 and deltas to 1e-3 of the update's largest element: the
+vmapped step's products are batched cuBLAS calls that sum in other orders,
+and a delta (lr 3e-3 times the momentum) is a difference of parameters
+some thousand times its size, so a gradient that differs in its last bits
+moves the delta by a few of the parameters' ulps, ~1e-4 of the delta.
 """
 import dataclasses
 
@@ -23,6 +34,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels import build
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru import rglru
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd
@@ -333,3 +345,119 @@ def test_mamba2_on_cuda_matches_cpu(prompt_len):
 def test_serve_defaults_to_cuda():
     tokens = serve.serve("recurrentgemma-2b", verbose=False)
     assert tokens.is_cuda and tokens.shape == (2, 16)
+
+
+def scaled_errs(got, want):
+    return [float((a - b).abs().max() / b.abs().max()) for a, b in
+            zip(got, want)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+def test_ssd_function_gradients(with_h0):
+    """SSDScan's gradients (the kernel forward, the plain VJP backward) equal
+    autograd through the plain version, alone and vmapped over three
+    clients with their own ``a``; one launch either way."""
+    bs, s, h, p, g, n, chunk = 2, 512, 8, 64, 1, 128, 256
+    gg = gen(21)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gg)
+    wy, ws = rnd(bs, s, h, p), rnd(bs, h, p, n)
+
+    def loss(scan):
+        def f(x, dt, a, b, c, *h0):
+            y, st = scan(x, dt, a, b, c, chunk, h0[0] if h0 else None)
+            return (y * wy).sum() + (st * ws).sum()
+        return f
+
+    def inputs(seed):
+        args = ssd_inputs(bs, s, h, p, g, n, seed, h0=with_h0)
+        return args if with_h0 else args[:5]
+    args = inputs(1)
+    nums = tuple(range(len(args)))
+    f = loss(ssd_ops.ssd_chunked)
+    ssd.ssd_scan.launches = 0
+    got = torch.func.grad(f, nums)(*args)
+    assert ssd.ssd_scan.launches == 1
+    want = torch.func.grad(loss(ssd_ops.ssd_chunked_plain), nums)(*args)
+    assert max(scaled_errs(got, want)) <= 1e-4
+    vargs = [torch.stack(t) for t in zip(*(inputs(2 + i) for i in range(3)))]
+    ssd.ssd_scan.launches = 0
+    vgot = torch.func.vmap(torch.func.grad(f, nums))(*vargs)
+    assert ssd.ssd_scan.launches == 1
+    for i in range(3):
+        one = torch.func.grad(f, nums)(*(t[i] for t in vargs))
+        assert max(scaled_errs([t[i] for t in vgot], one)) <= 1e-4
+
+
+@requires_cuda
+def test_rglru_function_gradients():
+    b, s, w = 2, 300, 96
+    gg = gen(22)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gg)
+    wh, wl = rnd(b, s, w), rnd(b, w)
+
+    def loss(scan):
+        def f(log_at, xi, h0):
+            hs, last = scan(log_at.contiguous(), xi.contiguous(),
+                            h0.contiguous())
+            return (hs * wh).sum() + (last * wl).sum()
+        return f
+
+    def inputs():
+        return (-0.8 * torch.rand(b, s, w, device="cuda", generator=gg),
+                rnd(b, s, w), rnd(b, w))
+    f = loss(rglru_ops.RGLRUScan.apply)
+    args = inputs()
+    rglru.rglru_scan.launches = 0
+    got = torch.func.grad(f, (0, 1, 2))(*args)
+    assert rglru.rglru_scan.launches == 1
+    want = torch.func.grad(loss(rglru.rglru_scan_plain), (0, 1, 2))(*args)
+    assert max(scaled_errs(got, want)) <= 1e-5
+    vargs = [torch.stack(t) for t in zip(*(inputs() for _ in range(3)))]
+    rglru.rglru_scan.launches = 0
+    vgot = torch.func.vmap(torch.func.grad(f, (0, 1, 2)))(*vargs)
+    assert rglru.rglru_scan.launches == 1
+    for i in range(3):
+        one = torch.func.grad(f, (0, 1, 2))(*(t[i] for t in vargs))
+        assert max(scaled_errs([t[i] for t in vgot], one)) <= 1e-5
+
+
+@requires_cuda
+def test_direct_kernel_calls_refuse_grad():
+    x, dt, a, b, c, _ = ssd_inputs(1, 64, 2, 64, 1, 128, seed=3)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssd.launch(x.requires_grad_(True), dt, a.repeat(1), b, c, chunk=64)
+    la = -torch.rand(1, 8, 32, device="cuda").requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        rglru.rglru_scan(la, torch.randn(1, 8, 32, device="cuda"))
+    with torch.no_grad():
+        rglru.rglru_scan(la, torch.randn(1, 8, 32, device="cuda"))
+
+
+@requires_cuda
+def test_mamba2_full_width_cohort_step_equals_loop():
+    """mamba2-1.3b at full width, two layers, 512 tokens x batch 2: one
+    cohort fan-out of three clients (K 2, vmapped: one SSD launch per layer
+    and step) against the loop engine's client steps from the same state."""
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core import cohort
+    from repro_torch.core.client import Client
+    from repro_torch.core.tasks import ArchTask
+
+    cfg = dataclasses.replace(configs.get_arch("mamba2-1.3b"), num_layers=2,
+                              dtype="float32")
+    task = ArchTask(cfg=cfg, shape=dataclasses.replace(
+        TRAIN_4K, seq_len=512, global_batch=2))
+    fed = dataclasses.replace(task.fed, num_clients=3)
+    params = task.init(torch.Generator().manual_seed(0), "cuda")
+    make = lambda: [Client(i, task, i, fed, seed=0, device="cuda")
+                    for i in range(3)]
+    loop = [c.run_local(params, 2, 0) for c in make()]
+    ssd.ssd_scan.launches = 0
+    coh = cohort.run_cohort(task, make(), params, [2] * 3, [0] * 3)
+    assert ssd.ssd_scan.launches == 2 * cfg.num_layers
+    flat = lambda tree: torch.cat([t.reshape(-1)
+                                   for t in pt.tree_leaves(tree)])
+    for (u, l), (v, m) in zip(loop, coh):
+        assert scaled_errs([flat(v.delta)], [flat(u.delta)])[0] <= 1e-3
+        assert m == pytest.approx(l, rel=1e-5)

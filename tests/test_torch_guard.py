@@ -2,8 +2,8 @@
 
 Two checks: importing every module of ``repro_torch`` in a fresh process in
 which ``import jax`` fails, and a scan of every ``.py`` of the port, of
-``chip_smoke.py`` and of ``examples/quickstart_torch.py`` for an import line
-of ``jax`` or ``repro``.
+``chip_smoke.py`` and of the examples' twins (``examples/*_torch.py``) for an
+import line of ``jax`` or ``repro``.
 """
 import os
 import re
@@ -15,8 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "examples" / "quickstart_torch.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 BAD_IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)(\.|\s|,|$)|from\s+(jax|repro)(\.|\s))")
 
