@@ -42,7 +42,17 @@ through the plain versions, alone and vmapped over clients; mamba2-1.3b at
 every published width with its depth cut to 4 layers, federated on the
 cohort engine and on the loop engine (equal traces, a falling eval loss),
 with a client step's forward and backward, the SSD VJP's share and the
-fedagg kernels at the model's flat length timed; and the three registered
+fedagg kernels at the model's flat length timed; model sharding and the
+pod engine (``sharded``: the card counted S times by the mesh's device
+hook, ``launch.mesh.repeat_devices``): the six sharded fedagg entry points
+at the mamba2-1.3b flat length on 1, 2 and 4 shards against f64 sums and,
+to the bit, the unsharded AXPY and apply at the same etas, S launches per
+sweep and no host wait on a single arrival; the sharded flat server on
+synthetic-1-1 (sequential, burst, int8 burst, displacement) against its
+S = 1 run; the pod engine on synthetic-burst with int8 and bf16 wire forms
+against the cohort engine and the CPU; a checkpoint saved on 4 shards
+restored on 1; and mamba2-1.3b at full width on 2 pods and 2 model shards
+against the cohort run; and the three registered
 arch scenarios on the card against the CPU port. ``fedagg_fused``, which no path of
 either package calls, is held to the bit against ``fedagg_axpy`` and
 ``fedagg_norms``. The line of its
@@ -184,6 +194,28 @@ PROFILED_COHORT = "synthetic-256"
 ARCH_TRAIN = dict(arch="mamba2-1.3b", num_layers=4, seq_len=512,
                   global_batch=4, clients=4, k=2, updates=12,
                   params=206_372_608, rtol=2e-3, atol=1e-5)
+#: the sharded phase: the mamba2-1.3b flat length (3,149 blocks, odd, so
+#: S = 2 and 4 pad), the shard counts and burst sizes of its op rows, and
+#: their tolerances against f64: gamma, eta and the norms relative, cross
+#: and Gram terms over their Cauchy-Schwarz bound
+SHARDED_N = 206_372_864
+SHARDED_SHARDS = (1, 2, 4)
+SHARDED_BURSTS = (2, 23)
+SHARDED_RTOL = 1e-6
+SHARDED_CS_TOL = 1e-5
+#: the sharded server on synthetic-1-1 (label, S, window, delta, algorithm),
+#: each against its S = 1 run on the card, cut to this many updates
+SHARDED_SERVER_RUNS = [("seq-S2", 2, 0.0, "off", "asyncfeded"),
+                       ("seq-S8", 8, 0.0, "off", "asyncfeded"),
+                       ("burst-S4", 4, 0.05, "off", "asyncfeded"),
+                       ("int8-burst-S4", 4, 0.05, "int8", "asyncfeded"),
+                       ("disp-S2", 2, 0.0, "off",
+                        "asyncfeded-displacement")]
+SHARDED_SERVER_CAP = 40
+#: the pod engine on synthetic-burst: pods under the hook, update cap (the
+#: first burst comes after 34-39 single arrivals)
+SHARDED_PODS = 4
+SHARDED_POD_CAP = 64
 #: the cohort run cut to this many updates under torch.profiler (device
 #: busy time and idle share; every kernel event is read back)
 ARCH_TRAIN_PROFILED = 4
@@ -1816,7 +1848,8 @@ def phase_attack(torch, fedagg, launches: dict) -> None:
         _add(launches, counts)
 
 
-def _timed_sim(torch, fedagg, task, fed, cap, device, max_time=1e9, seed=0):
+def _timed_sim(torch, fedagg, task, fed, cap, device, max_time=1e9, seed=0,
+               algorithm="asyncfeded"):
     """One FederatedSimulation with timers, launch counts set to 0 just
     before it runs and read just after: wall s, client s (every fan-out,
     ``_run_locals``: both engines end in a wait for the losses), server s
@@ -1825,7 +1858,7 @@ def _timed_sim(torch, fedagg, task, fed, cap, device, max_time=1e9, seed=0):
     sizes. Returns (row, result, drain sizes, launch counts, simulation)."""
     from repro_torch.core.simulator import FederatedSimulation
 
-    sim = FederatedSimulation(task, fed, "asyncfeded", seed=seed,
+    sim = FederatedSimulation(task, fed, algorithm, seed=seed,
                               device=device)
     client_s, server_s, eval_s, widths, sizes = [], [], [], [], []
     run_locals = sim._run_locals
@@ -1855,6 +1888,7 @@ def _timed_sim(torch, fedagg, task, fed, cap, device, max_time=1e9, seed=0):
            "max_accuracy": res.max_accuracy(),
            "final_accuracy": res.points[-1].accuracy, "wall_s": wall,
            "client_s": sum(client_s), "server_s": sum(server_s),
+           "server_ms_median": 1e3 * statistics.median(server_s or [0]),
            "eval_s": sum(eval_s), "fan_outs": len(widths),
            "mean_width": statistics.mean(widths) if widths else 0,
            "max_width": max(widths, default=0), "plan": res.plan,
@@ -2648,7 +2682,8 @@ def phase_arch_train(torch, fedagg, ssd, ssd_ops, launches: dict) -> dict:
           f"chunk step {chunk_step['ssd_launches']}, expected {layers}")
     check(counts_c["ssd_scan"] > 0 and counts_c["ssd_scan"] % layers == 0,
           f"arch_train: cohort run's SSD launches {counts_c['ssd_scan']}")
-    return {"cohort": counts_c, "loop": counts_l}
+    return {"cohort": counts_c, "loop": counts_l,
+            "cohort_run": (res_c, row_c, counts_c)}
 
 
 def phase_arch_scenarios(torch, ssd, launches: dict) -> None:
@@ -2696,6 +2731,559 @@ def phase_arch_scenarios(torch, ssd, launches: dict) -> None:
               f"{name}: no SSD launch")
         check(fed.memory_budget_mb == 0 or res.plan["reason"] != "fits",
               f"{name}: budgeted plan {res.plan}")
+
+
+def _f64_norms(shards, chunk: int = 1 << 24):
+    """[sum (a - b)^2, sum d^2] in f64 over the shards' (a, b, d) triples,
+    ``d`` the delta as the sweeps read it (f32, bf16, or an int8 ``(q,
+    scales)`` pair dequantized to f32 first), in chunks of the length."""
+    import torch
+
+    from repro_torch.kernels.fedagg import fedagg
+
+    s = torch.zeros(2, dtype=torch.float64, device=shards[0][0].device)
+    for a, b, d in shards:
+        for lo in range(0, a.shape[0], chunk):
+            hi = lo + chunk
+            u = a[lo:hi].double() - b[lo:hi].double()
+            if isinstance(d, tuple):
+                v = fedagg.dequantize_plain(
+                    d[0][lo:hi], d[1][lo // fedagg.QBLOCK:hi // fedagg.QBLOCK]
+                ).double()
+            else:
+                v = d[lo:hi].double()
+            s += torch.stack([(u * u).sum(), (v * v).sum()])
+    return s
+
+
+def _f64_batched(shards, chunk: int = 1 << 22):
+    """The batched norms (dist0_sq, dn_sq, cross, gram) in f64 over the
+    shards' (x, x_stales, deltas) triples, deltas as in :func:`_f64_norms`
+    with (B, n) rows."""
+    from repro_torch.kernels.fedagg import fedagg
+
+    out = None
+    for x, xs, d in shards:
+        for lo in range(0, x.shape[0], chunk):
+            hi = lo + chunk
+            s = x[None, lo:hi].double() - xs[:, lo:hi].double()
+            if isinstance(d, tuple):
+                q0, q1 = lo // fedagg.QBLOCK, hi // fedagg.QBLOCK
+                v = fedagg.dequantize_rows_plain(
+                    d[0][:, lo:hi].contiguous(),
+                    d[1][:, q0:q1].contiguous()).double()
+            else:
+                v = d[:, lo:hi].double()
+            part = [(s * s).sum(1), (v * v).sum(1), s @ v.T, v @ v.T]
+            out = part if out is None else [a + p for a, p in zip(out, part)]
+    return out
+
+
+def _sharded_inputs(torch, n_true: int, n: int, b=None, seed: int = 0):
+    """(x_t, x_stale(s), delta(s)) on the card at padded length ``n``: the
+    first ``n_true`` entries random (the same for every ``n``), the rest
+    zero."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = () if b is None else (b,)
+    x = torch.zeros(n, device="cuda")
+    x[:n_true] = torch.randn(n_true, device="cuda", generator=g)
+    xs = torch.zeros(*rows, n, device="cuda")
+    xs[..., :n_true] = 0.01 * torch.randn(*rows, n_true, device="cuda",
+                                          generator=g)
+    xs[..., :n_true] += x[:n_true]
+    d = torch.zeros(*rows, n, device="cuda")
+    d[..., :n_true] = 0.05 * torch.randn(*rows, n_true, device="cuda",
+                                         generator=g)
+    return x, xs, d
+
+
+def _rel(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _count(fedagg) -> dict:
+    return {k.__name__: k.launches for k in fedagg.KERNELS if k.launches}
+
+
+def sharded_single_rows(torch, fedagg, compression, sharded, specs, mesh):
+    """The four single-arrival sharded entry points at the mamba2-1.3b flat
+    length on ``SHARDED_SHARDS`` shards of the one card (the device hook):
+    gamma, eta and the norms against the f64 sums, every shard's new vector
+    against the unsharded AXPY at the sharded eta to the bit, S launches of
+    each sweep per call, no host synchronisation in a call (CUDA's sync
+    debug mode raises on one), device ms (a CUDA graph) and call ms."""
+    import numpy as np
+
+    n_true, lam, eps = SHARDED_N, 2.0, 1.0
+    rows = []
+    # the host's cost of S shards: at a launch-bound length (4 blocks, in
+    # L2) call ms is the wrappers' host work
+    x, xs, d = _sharded_inputs(torch, 4 * fedagg.BLOCK, 4 * fedagg.BLOCK)
+    for s in SHARDED_SHARDS:
+        with mesh.repeat_devices(s):
+            m = mesh.make_fedagg_mesh(s)
+            a = [specs.split_flat(v, m) for v in (x, xs, d)]
+            fn = lambda: sharded.flat_aggregate(*a, lam=lam, eps=eps)
+            row = {"phase": "sharded_op", "name": "flat_aggregate",
+                   "S": s, "n": x.shape[0], "device_ms": device_ms(fn),
+                   "call_ms": call_ms(fn)}
+        emit(row)
+        rows.append(row)
+    del x, xs, d, a, fn
+    for s in SHARDED_SHARDS:
+        blk = fedagg.BLOCK * s
+        n = -(-n_true // blk) * blk
+        x, xs, d = _sharded_inputs(torch, n_true, n, seed=7)
+        z = torch.zeros_like(x)
+        cd = compression.quantize_vec(d, "int8", n_true)
+        with mesh.repeat_devices(s):
+            m = mesh.make_fedagg_mesh(s)
+            sp = lambda v: specs.split_flat(v, m)
+            sx, sxs, sd, sz = sp(x), sp(xs), sp(d), sp(z)
+            sq, ss = sp(cd.q), specs.split_scales(cd.scales, m)
+            cases = {
+                "flat_aggregate": (
+                    lambda: sharded.flat_aggregate(sx, sxs, sd, lam=lam,
+                                                   eps=eps),
+                    list(zip(sx, sxs, sd)),
+                    lambda e: fedagg.fedagg_axpy(x, d, e), "fedagg_norms",
+                    "fedagg_axpy"),
+                "flat_aggregate_displacement": (
+                    lambda: sharded.flat_aggregate_displacement(
+                        sx, sxs, sd, sz, lam=lam, eps=eps),
+                    list(zip(sxs, sz, sd)),
+                    lambda e: fedagg.fedagg_axpy(x, d, e), "fedagg_norms",
+                    "fedagg_axpy"),
+                "flat_aggregate_q": (
+                    lambda: sharded.flat_aggregate_q(sx, sxs, sq, ss,
+                                                     lam=lam, eps=eps),
+                    list(zip(sx, sxs, zip(sq, ss))),
+                    lambda e: fedagg.fedagg_axpy_q(x, cd.q, cd.scales, e),
+                    "fedagg_norms_q", "fedagg_axpy_q"),
+                "flat_aggregate_displacement_q": (
+                    lambda: sharded.flat_aggregate_displacement_q(
+                        sx, sxs, sq, ss, sz, lam=lam, eps=eps),
+                    list(zip(sxs, sz, zip(sq, ss))),
+                    lambda e: fedagg.fedagg_axpy_q(x, cd.q, cd.scales, e),
+                    "fedagg_norms_q", "fedagg_axpy_q")}
+            for name, (fn, triples, axpy, k_norms, k_axpy) in cases.items():
+                fn()                              # the ticket, first use
+                torch.cuda.synchronize()
+                fedagg.reset_launches()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    new, gamma, eta, dist, dnorm = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                counts = _count(fedagg)
+                sq64 = _f64_norms(triples).cpu().numpy()
+                dist64, dn64 = np.sqrt(sq64)
+                gamma64 = dist64 / dn64
+                eta64 = lam / (gamma64 + eps)
+                got = [float(v) for v in (gamma, eta, dist, dnorm)]
+                err = _rel(got, [gamma64, eta64, dist64, dn64])
+                bitwise = bool(torch.equal(specs.gather_flat(new),
+                                           axpy(eta)))
+                row = {"phase": "sharded_op", "name": name, "S": s,
+                       "n": n, "n_true": n_true, "rel_err_f64": err,
+                       "tol": SHARDED_RTOL, "bitwise_vs_unsharded": bitwise,
+                       "launches": counts,
+                       "shard_bytes": [int(t.numel() * t.element_size())
+                                       for t in new],
+                       "device_ms": device_ms(fn, reps=3, trials=5),
+                       "call_ms": call_ms(fn, reps=3, trials=5)}
+                emit(row)
+                rows.append(row)
+                check(err <= SHARDED_RTOL, f"sharded {name} S={s}: gamma, "
+                      f"eta, norms {err} from f64 > {SHARDED_RTOL}")
+                check(bitwise, f"sharded {name} S={s}: shards differ from "
+                      "the unsharded AXPY at the same eta")
+                check(counts == {k_norms: s, k_axpy: s},
+                      f"sharded {name} S={s}: launches {counts}")
+                check(len(new) == s and all(t.is_cuda for t in new),
+                      f"sharded {name} S={s}: {len(new)} shards")
+            del sx, sxs, sd, sz, sq, ss, cases
+        del x, xs, d, z, cd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_burst_rows(torch, fedagg, compression, sharded, specs, mesh):
+    """The two batched sharded entry points at the mamba2-1.3b flat length,
+    bursts of ``SHARDED_BURSTS`` (f32 rows at B = 2, bf16 at B = 23, the
+    wire form that fits the card at that size; int8 at both), S shards of
+    the one card: gamma, eta and the norms against the f64 sums (the
+    schedule run in f64 on them), cross and Gram against f64 over their
+    Cauchy-Schwarz bound, the new vector against the unsharded apply at the
+    sharded etas to the bit, S launches of each sweep per burst; the
+    burst's device ms (its 2S kernels in a CUDA graph) and call ms (the
+    entry point, host schedule and copies included)."""
+    from repro_torch.core.aggregation import sequential_batch_schedule
+
+    n_true, lam, eps = SHARDED_N, 2.0, 1.0
+    rows = []
+    for b in SHARDED_BURSTS:
+        for form in ("f32" if b == 2 else "bf16", "int8"):
+            for s in SHARDED_SHARDS:
+                blk = fedagg.BLOCK * s
+                n = -(-n_true // blk) * blk
+                x, xs, d = _sharded_inputs(torch, n_true, n, b=b, seed=b)
+                with mesh.repeat_devices(s):
+                    m = mesh.make_fedagg_mesh(s)
+                    sp = lambda v: specs.split_flat(v, m)
+                    sx, sxs = sp(x), sp(xs)
+                    del xs
+                    if form == "int8":
+                        wq = [compression.quantize_vec(r, "int8", n_true)
+                              for r in d]
+                        del d
+                        q = torch.stack([w.q for w in wq])
+                        sc = torch.stack([w.scales for w in wq])
+                        del wq
+                        sd = list(zip(sp(q), specs.split_scales(sc, m)))
+                        fn = lambda: sharded.flat_aggregate_batched_q(
+                            sx, sxs, tuple(a for a, _ in sd),
+                            tuple(c for _, c in sd), lam=lam, eps=eps)
+                        apply = lambda e: fedagg.fedagg_apply_batched_q(
+                            x, q, sc, e)
+                        kinds = ("fedagg_norms_batched_q",
+                                 "fedagg_apply_batched_q")
+                        sweeps = lambda e: [
+                            (fedagg.norms_batched_packed(a, bb, qq, cc),
+                             fedagg.fedagg_apply_batched_q(a, qq, cc, e))
+                            for a, bb, (qq, cc) in zip(sx, sxs, sd)]
+                    else:
+                        if form == "bf16":
+                            d = d.to(torch.bfloat16)
+                        sd = sp(d)
+                        fn = lambda: sharded.flat_aggregate_batched(
+                            sx, sxs, sd, lam=lam, eps=eps)
+                        apply = lambda e: fedagg.fedagg_apply_batched(x, d, e)
+                        kinds = ("fedagg_norms_batched",
+                                 "fedagg_apply_batched")
+                        sweeps = lambda e: [
+                            (fedagg.norms_batched_packed(a, bb, dd),
+                             fedagg.fedagg_apply_batched(a, dd, e))
+                            for a, bb, dd in zip(sx, sxs, sd)]
+                    fedagg.reset_launches()
+                    new, etas, gammas, dists, dnorms, _ = fn()
+                    counts = _count(fedagg)
+                    ref = [t.cpu().numpy() for t in _f64_batched(
+                        list(zip(sx, sxs, sd)))]
+                    e64, g64, di64, dn64 = sequential_batch_schedule(
+                        *ref, lam=lam, eps=eps)
+                    err = max(_rel(gammas, g64), _rel(etas, e64),
+                              _rel(dists, di64), _rel(dnorms, dn64))
+                    etas_t = torch.from_numpy(etas).cuda()
+                    bitwise = bool(torch.equal(specs.gather_flat(new),
+                                               apply(etas_t)))
+                    del new
+                    packed = sharded._psum([fedagg.norms_batched_packed(
+                        a, bb, *(dd if isinstance(dd, tuple) else (dd,)))
+                        for a, bb, dd in zip(sx, sxs, sd)])
+                    got = [torch.as_tensor(v).double() for v in
+                           fedagg.split_batched(packed.cpu().numpy(), b)]
+                    _, cs_err, _ = batched_errors(
+                        got, [torch.as_tensor(r) for r in ref])
+                    row = {"phase": "sharded_op",
+                           "name": ("flat_aggregate_batched_q"
+                                    if form == "int8"
+                                    else "flat_aggregate_batched"),
+                           "B": b, "delta": form, "S": s, "n": n,
+                           "rel_err_f64": err, "tol": SHARDED_RTOL,
+                           "cross_gram_err_f64": cs_err,
+                           "bitwise_vs_unsharded": bitwise,
+                           "launches": counts,
+                           "device_ms": device_ms(lambda: sweeps(etas_t),
+                                                  reps=2, trials=3),
+                           "call_ms": call_ms(fn, reps=2, trials=3)}
+                    emit(row)
+                    rows.append(row)
+                    label = f"sharded {row['name']} B={b} {form} S={s}"
+                    check(err <= SHARDED_RTOL, f"{label}: gamma, eta, "
+                          f"norms {err} from f64 > {SHARDED_RTOL}")
+                    check(cs_err <= SHARDED_CS_TOL,
+                          f"{label}: cross/Gram {cs_err} > {SHARDED_CS_TOL}")
+                    check(bitwise, f"{label}: shards differ from the "
+                          "unsharded apply at the same etas")
+                    check(counts == {k: s for k in kinds},
+                          f"{label}: launches {counts}")
+                    del sx, sxs, sd, fn, apply, sweeps, packed
+                del x
+                if form == "int8":
+                    del q, sc
+                else:
+                    del d
+                torch.cuda.empty_cache()
+    return rows
+
+
+def _sim_pair_check(label, got, want, rtol=2e-4, atol=1e-5, acc_rtol=1e-3):
+    """The reference's ``assert_same_run``: traces (and screen verdicts)
+    equal, gamma to rtol / atol, eval accuracies to ``acc_rtol`` (None: not
+    compared). Returns the largest gamma excess over atol + rtol |want|
+    (<= 1 passes)."""
+    import numpy as np
+
+    key = lambda r: [(h.iteration, h.client_id, h.lag, h.k_next, h.screen)
+                     for h in r.history]
+    same = key(got) == key(want)
+    g1 = np.array([h.gamma for h in got.history], np.float64)
+    g2 = np.array([h.gamma for h in want.history], np.float64)
+    excess = (float(np.max(np.abs(g1 - g2) / (atol + rtol * np.abs(g2))))
+              if same and len(g1) else float("inf"))
+    a1 = np.array([p.accuracy for p in got.points])
+    a2 = np.array([p.accuracy for p in want.points])
+    acc_ok = acc_rtol is None or (a1.shape == a2.shape and bool(
+        np.all(np.abs(a1 - a2) <= acc_rtol * np.abs(a2))))
+    check(same, f"{label}: traces differ")
+    check(excess <= 1.0, f"{label}: gamma beyond rtol {rtol} (excess "
+          f"{excess})")
+    check(acc_ok, f"{label}: accuracies differ beyond rtol {acc_rtol}")
+    return excess
+
+
+def _hooked_sim(torch, fedagg, mesh, task, fed, cap, devices, device="cuda",
+                algorithm="asyncfeded"):
+    """``_timed_sim`` with the mesh's device hook counting the card
+    ``devices`` times."""
+    with mesh.repeat_devices(devices):
+        return _timed_sim(torch, fedagg, task, fed, cap, device,
+                          algorithm=algorithm)
+
+
+def sharded_server_runs(torch, fedagg, mesh, launches: dict):
+    """The sharded flat server on the card (``SHARDED_SERVER_RUNS``), each
+    against the same config at S = 1 on the card: traces equal, gamma and
+    accuracy to the reference's bounds, equal drain counts, and S times the
+    unsharded run's launches. Outside the hook ``model_shards`` beyond the
+    card count raises the mesh's error. Returns the S = 4 burst run's
+    server and its S = 1 twin's (for the checkpoint)."""
+    from repro_torch import configs
+    from repro_torch.core.simulator import FederatedSimulation
+
+    task = configs.SYNTHETIC_1_1
+    # unmeasured: the sharded path's first use in this process
+    _hooked_sim(torch, fedagg, mesh, task, dataclasses.replace(
+        task.fed, backend="pallas", model_shards=2), WARMUP_UPDATES, 2)
+    base = {}
+    servers = None
+    for label, s, window, comp, algorithm in SHARDED_SERVER_RUNS:
+        fed = dataclasses.replace(task.fed, backend="pallas",
+                                  batch_window=window,
+                                  delta_compression=comp)
+        key = (window, comp, algorithm)
+        if key not in base:
+            base[key] = _timed_sim(torch, fedagg, task, fed,
+                                   SHARDED_SERVER_CAP, "cuda",
+                                   algorithm=algorithm)
+            _add(launches, base[key][3])
+        row1, res1, sizes1, counts1, sim1 = base[key]
+        row, res, sizes, counts, sim = _hooked_sim(
+            torch, fedagg, mesh, task,
+            dataclasses.replace(fed, model_shards=s), SHARDED_SERVER_CAP,
+            s, algorithm=algorithm)
+        _add(launches, counts)
+        per_agg = lambda r, sz: 1e3 * r["server_s"] / max(len(sz), 1)
+        emit({"phase": "sharded_server", "run": label, "S": s,
+              "window": window, "delta": comp, "algorithm": algorithm,
+              "updates": res.total_updates, "drains": res.total_drains,
+              "server_ms_per_drain": per_agg(row, sizes),
+              "server_ms_per_drain_S1": per_agg(row1, sizes1),
+              "server_ms_median": row["server_ms_median"],
+              "server_ms_median_S1": row1["server_ms_median"],
+              "wall_s": row["wall_s"], "wall_s_S1": row1["wall_s"],
+              "launches": counts, "launches_S1": counts1,
+              "shard_bytes": [int(t.numel() * t.element_size())
+                              for t in sim.server._flat.vec]})
+        _sim_pair_check(f"sharded server {label}", res, res1)
+        check(res.total_drains == res1.total_drains,
+              f"sharded server {label}: drains {res.total_drains} != "
+              f"{res1.total_drains}")
+        check(counts == {k: s * v for k, v in counts1.items()},
+              f"sharded server {label}: launches {counts}, S = 1 {counts1}")
+        check(len(sim.server._flat.vec) == s, f"sharded server {label}: "
+              f"{len(sim.server._flat.vec)} shards")
+        if label == "burst-S4":
+            servers = (sim.server, sim1.server)
+    over = 2 * torch.cuda.device_count()
+    try:
+        FederatedSimulation(task, dataclasses.replace(
+            task.fed, backend="pallas", model_shards=over), device="cuda")
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    emit({"phase": "sharded_server", "run": f"model_shards={over} unhooked",
+          "raised": raised})
+    check(raised is not None and "devices, have" in raised,
+          f"model_shards={over} on {over // 2} card(s) did not raise the "
+          "mesh's error")
+    return servers
+
+
+def sharded_pod_runs(torch, fedagg, mesh, launches: dict) -> None:
+    """The pod engine on ``SYNTHETIC_BURST`` (32 clients, auto window, flat
+    server) with int8 and bf16 wire forms: one pod (the card alone) and
+    ``SHARDED_PODS`` pods (the hook), each against the card's cohort run
+    (trace equal, gamma and accuracy to the reference's bounds, the same
+    launches) and the CPU port's pod run (trace equal); then the 2-D
+    layout, int8 pods into ``model_shards=2``, against the cohort run."""
+    from repro_torch import configs
+
+    task = configs.SCENARIOS["synthetic-burst"]
+    cap = SHARDED_POD_CAP
+    for mode in ("int8", "bf16"):
+        fed_c = dataclasses.replace(task.fed, delta_compression=mode)
+        fed_p = dataclasses.replace(fed_c, client_engine="cohort_sharded")
+        row_c, res_c, sizes_c, counts_c, _ = _timed_sim(
+            torch, fedagg, task, fed_c, cap, "cuda")
+        _add(launches, counts_c)
+        out = {"phase": "sharded_pods", "scenario": "synthetic-burst",
+               "delta": mode, "cap": cap, "cohort": row_c}
+        for pods in (1, SHARDED_PODS):
+            row, res, sizes, counts, sim = _hooked_sim(
+                torch, fedagg, mesh, task, fed_p, cap, pods)
+            _add(launches, counts)
+            label = f"pods={pods} {mode}"
+            out[f"pods_{pods}"] = row
+            out[f"pods_{pods}_gamma_excess"] = _sim_pair_check(
+                f"pod engine {label} vs cohort", res, res_c)
+            check(counts == counts_c and sizes == sizes_c,
+                  f"pod engine {label}: launches {counts} / {counts_c}")
+            check(row["max_width"] >= 2, f"pod engine {label}: no fan-out")
+            staged = [c._residual for c in sim.clients
+                      if c._residual is not None]
+            check(staged and all(
+                r.is_cuda and r.storage_offset() == 0
+                and r.untyped_storage().nbytes() == r.numel() * 4
+                for r in staged),
+                f"pod engine {label}: residual rows not owned on the card")
+        _, res_cpu, _, _, _ = _hooked_sim(torch, fedagg, mesh, task, fed_p,
+                                          cap, SHARDED_PODS, device="cpu")
+        same_cpu = _key(res.history) == _key(res_cpu.history)
+        out["cpu_trace_identical"] = same_cpu
+        emit(out)
+        check(same_cpu, f"pod engine {mode}: card and CPU traces differ")
+    fed_c = dataclasses.replace(task.fed, delta_compression="int8")
+    fed_2d = dataclasses.replace(fed_c, client_engine="cohort_sharded",
+                                 model_shards=2)
+    _, res_c, _, counts_c, _ = _timed_sim(torch, fedagg, task, fed_c, cap,
+                                          "cuda")
+    row, res, _, counts, sim = _hooked_sim(torch, fedagg, mesh, task, fed_2d,
+                                           cap, 2)
+    _add(launches, counts_c)
+    _add(launches, counts)
+    emit({"phase": "sharded_pods", "scenario": "synthetic-burst",
+          "layout": "2 pods x 2 model shards", "delta": "int8",
+          "run": row, "launches_cohort": counts_c,
+          "gamma_excess": _sim_pair_check("pod engine 2-D vs cohort", res,
+                                          res_c)})
+    check(counts == {k: 2 * v for k, v in counts_c.items()},
+          f"pod engine 2-D: launches {counts}, cohort {counts_c}")
+    check(len(sim.server._flat.vec) == 2, "pod engine 2-D: not sharded")
+
+
+def sharded_checkpoint(torch, servers) -> None:
+    """Saved at S = 4, restored at S = 1: the n true elements equal bitwise
+    (the S = 1 server is the burst run's unsharded twin)."""
+    import shutil
+
+    from repro_torch.sharding import specs
+
+    s4, s1 = servers
+    d = ROOT / "build" / "chip_smoke_sharded_checkpoint"
+    shutil.rmtree(d, ignore_errors=True)
+    s4.save_checkpoint(str(d), step=1)
+    s1.restore_checkpoint(str(d), step=1)
+    n = s1._flat.spec.n
+    bitwise = bool(torch.equal(s1._flat.vec[:n],
+                               specs.gather_flat(s4._flat.vec)[:n]))
+    shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "sharded_checkpoint", "saved_S": len(s4._flat.vec),
+          "restored_S": 1, "n": n, "restored_bitwise": bitwise})
+    check(bitwise, "sharded checkpoint: S = 4 -> S = 1 restore differs")
+
+
+def sharded_arch_run(torch, fedagg, mesh, ssd, cohort_run,
+                     launches: dict) -> None:
+    """arch_train (a)'s mamba2-1.3b task at every published width on the
+    pod engine with ``model_shards=2`` (two pods of two clients and two
+    model shards, one after another on the card), against that phase's
+    cohort run: traces equal, gamma and the last eval loss to
+    ``ARCH_TRAIN["rtol"]``, twice its fedagg launches; per-shard flat
+    bytes, peak GiB, wall s, server ms per drain."""
+    task = _arch_train_task()
+    res_c, row_c, counts_c = cohort_run
+    fed = dataclasses.replace(
+        task.fed, num_clients=ARCH_TRAIN["clients"],
+        k_initial=ARCH_TRAIN["k"], client_engine="cohort_sharded",
+        backend="pallas", batch_window="auto", model_shards=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.ssd_scan.launches = 0
+    row, res, sizes, counts, sim = _hooked_sim(
+        torch, fedagg, mesh, task, fed, ARCH_TRAIN["updates"], 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {**counts, "ssd_scan": ssd.ssd_scan.launches}
+    _add(launches, counts)
+    shard_bytes = [int(t.numel() * t.element_size())
+                   for t in sim.server._flat.vec]
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    rtol, atol = ARCH_TRAIN["rtol"], ARCH_TRAIN["atol"]
+    loss_c, loss_s = res_c.points[-1].loss, res.points[-1].loss
+    loss_gap = abs(loss_s - loss_c) / abs(loss_c)
+    emit({"phase": "sharded_arch", "model": ARCH_TRAIN["arch"],
+          "layout": "2 pods x 2 model shards", "updates": res.total_updates,
+          "drains": res.total_drains, "shard_bytes": shard_bytes,
+          "peak_gib": peak, "wall_s": row["wall_s"],
+          "wall_s_cohort": row_c["wall_s"],
+          "server_ms_per_drain": 1e3 * row["server_s"] / max(len(sizes), 1),
+          "server_ms_per_drain_cohort":
+              1e3 * row_c["server_s"] / max(res_c.total_drains, 1),
+          "launches": counts, "launches_cohort": counts_c,
+          "last_eval_loss": loss_s, "last_eval_loss_cohort": loss_c,
+          "eval_loss_rel_gap": loss_gap,
+          "gamma_excess": _sim_pair_check(
+              "sharded arch run vs cohort", res, res_c, rtol=rtol,
+              atol=atol, acc_rtol=None)})
+    check(loss_gap <= rtol, f"sharded arch run: last eval loss {loss_s} vs "
+          f"{loss_c}")
+    check(all(counts[k] == 2 * v for k, v in counts_c.items()
+              if k != "ssd_scan"),
+          f"sharded arch run: launches {counts}, cohort {counts_c}")
+
+
+def phase_sharded(torch, fedagg, compression, ssd, cohort_run,
+                  launches: dict) -> None:
+    """``sharded``: model sharding and the pod engine on the one card, the
+    card counted S times by the mesh's device hook (S shard allocations, S
+    launches per sweep): the sharded entry points at the mamba2-1.3b flat
+    length, the sharded server, the pod engine, a checkpoint across
+    layouts and the full-width mamba2-1.3b run on two pods and two model
+    shards."""
+    from repro_torch.kernels.fedagg import sharded
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import specs
+
+    t0 = time.perf_counter()
+    sharded_single_rows(torch, fedagg, compression, sharded, specs, mesh)
+    sharded_burst_rows(torch, fedagg, compression, sharded, specs, mesh)
+    t1 = time.perf_counter()
+    servers = sharded_server_runs(torch, fedagg, mesh, launches)
+    sharded_checkpoint(torch, servers)
+    del servers
+    t2 = time.perf_counter()
+    sharded_pod_runs(torch, fedagg, mesh, launches)
+    t3 = time.perf_counter()
+    sharded_arch_run(torch, fedagg, mesh, ssd, cohort_run, launches)
+    emit({"phase": "sharded_seconds", "ops": t1 - t0, "server": t2 - t1,
+          "pods": t3 - t2, "arch": time.perf_counter() - t3})
 
 
 def phase_profile(torch) -> None:
@@ -2834,14 +3422,18 @@ def main(argv) -> int:
     t6 = time.perf_counter()
     phase_arch_grads(torch, ssd, ssd_ops, rglru, rglru_ops)
     t7 = time.perf_counter()
-    phase_arch_train(torch, fedagg, ssd, ssd_ops, launches)
+    arch = phase_arch_train(torch, fedagg, ssd, ssd_ops, launches)
     t8 = time.perf_counter()
+    phase_sharded(torch, fedagg, compression, ssd, arch["cohort_run"],
+                  launches)
+    del arch
+    t9 = time.perf_counter()
     phase_arch_scenarios(torch, ssd, launches)
     emit({"phase": "phase_seconds", "comparison": t1 - t0,
           "attack": t2 - t1, "cohort": t3 - t2, "budget": t4 - t3,
           "population": t5 - t4, "checkpoint": t6 - t5,
           "arch_grads": t7 - t6, "arch_train": t8 - t7,
-          "arch_scenarios": time.perf_counter() - t8})
+          "sharded": t9 - t8, "arch_scenarios": time.perf_counter() - t9})
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"

@@ -65,3 +65,17 @@ def cohort_footprint_bytes(param_bytes: int, batch_bytes: int,
     per_client = (-(-param_state // shards)        # ceil: shards round up
                   + int(k_steps) * int(batch_bytes) + int(act_bytes))
     return int(clients) * per_client
+
+
+def flat_state_bytes(param_bytes: int, gmis_depth: int,
+                     model_shards: int = 1) -> int:
+    """Per-device bytes of the flat server's state: the padded flat vector,
+    the zeros vector of the displacement sweeps and up to ``gmis_depth``
+    ring-GMIS snapshots, all parameter-shaped and split over the ``model``
+    axis, so each device holds ``1 / S`` of every copy::
+
+        per_device = (2 + gmis_depth) * ceil(P / S)
+    """
+    shards = max(1, int(model_shards))
+    per_copy = -(-int(param_bytes) // shards)
+    return (2 + max(0, int(gmis_depth))) * per_copy

@@ -32,6 +32,7 @@ from typing import Optional
 from repro_torch.configs.base import FedConfig
 from repro_torch.configs.shapes import cohort_footprint_bytes, delta_wire_bytes
 from repro_torch.core import tasks
+from repro_torch.launch import mesh
 
 
 def _bucket(n: int) -> int:
@@ -60,34 +61,36 @@ class CohortPlan:
         return dataclasses.asdict(self)
 
 
-def _pod_count(fed: FedConfig, clients: int) -> int:
-    """Pods a fan-out splits over: 1 for the single-device engines. The
-    pod-sharded engine is a later slice of the port."""
-    if fed.client_engine == "cohort_sharded":
-        raise NotImplementedError(
-            "client_engine='cohort_sharded' is not ported yet (ROADMAP.md "
-            "A17)")
-    return 1
+def _pod_count(fed: FedConfig, clients: int, device=None) -> int:
+    """Pods the sharded engine will split this fan-out over: 1 for the
+    single-device engines; otherwise what the pod mesh of ``device`` (the
+    fan-out's home device) yields for the padded client bucket."""
+    if fed.client_engine != "cohort_sharded":
+        return 1
+    return max(1, mesh.pod_count(max_pods=_bucket(max(clients, 1)),
+                                 device=device))
 
 
 def plan_cohort(task, fed: FedConfig, *, clients: int, k: int,
                 param_bytes: int, prox_mu: float = 0.0, ragged: bool = False,
                 budget_bytes: Optional[int] = None,
                 pods: Optional[int] = None,
-                model_shards: Optional[int] = None) -> CohortPlan:
+                model_shards: Optional[int] = None,
+                device=None) -> CohortPlan:
     """Plan one fan-out of ``clients`` clients x ``k`` local steps.
 
     ``ragged`` means the clients' K differ: the engine then pads the steps
     to the power-of-two bucket of ``max(ks)``, so the plan charges the
     padded staged batches. ``budget_bytes`` overrides
     ``fed.memory_budget_mb``; 0 means unlimited. ``pods`` and
-    ``model_shards`` override the per-device divisors (tests plan for
-    layouts the port does not run yet)."""
+    ``model_shards`` override the per-device divisors; by default the pods
+    are what the ``cohort_sharded`` engine's mesh on ``device`` gives (None
+    means CUDA) and the shards ``fed.model_shards``."""
     task = tasks.as_task(task)
     if budget_bytes is None:
         budget_bytes = int(fed.memory_budget_mb * 2 ** 20)
     if pods is None:
-        pods = _pod_count(fed, clients)
+        pods = _pod_count(fed, clients, device)
     pods = max(1, int(pods))
     if model_shards is None:
         model_shards = fed.model_shards

@@ -6,11 +6,12 @@ simulator (repro_torch.core.simulator) drives them. The server works on the
 device its initial params lie on.
 
 The AsyncFedED server has both backends, both GMIS modes and the per-leaf
-variant, compressed (int8 and bf16) deltas, and the flat backend's batched
-burst drain for every wire form, and checkpoints of the global model in the
-JAX package's format. The baselines mix parameter trees in plain torch, as
-the reference does. Model sharding is a later slice: the server raises
-``NotImplementedError`` for it.
+variant, compressed (int8 and bf16) deltas, the flat backend's batched
+burst drain for every wire form, model sharding of the flat state
+(``FedConfig.model_shards``: the vector and every GMIS snapshot split over
+the ``model`` axis of the mesh, ``kernels/fedagg/sharded.py``), and
+checkpoints of the global model in the JAX package's format. The baselines
+mix parameter trees in plain torch, as the reference does.
 """
 from __future__ import annotations
 
@@ -28,10 +29,18 @@ from repro_torch.core.aggregation import (asyncfeded_aggregate,
                                           asyncfeded_aggregate_per_leaf,
                                           asyncfeded_aggregate_with_dist)
 from repro_torch.core.gmis import DisplacementGMIS, RingGMIS
-from repro_torch.kernels.fedagg import fedagg, ops
+from repro_torch.kernels.fedagg import fedagg, ops, sharded
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.sharding import specs
 from repro_torch.utils import pytree as pt
 
 PyTree = Any
+
+#: the flat aggregation entry points, bound to ``ops`` or to their
+#: model-sharded twins in ``sharded``
+_AGG_OPS = ("flat_aggregate", "flat_aggregate_displacement",
+            "flat_aggregate_q", "flat_aggregate_displacement_q",
+            "flat_aggregate_batched", "flat_aggregate_batched_q")
 
 
 @dataclasses.dataclass
@@ -172,7 +181,12 @@ class AsyncFedEDServer(AsyncServer):
       (``kernels.fedagg``): hand-written CUDA kernels on the GPU, their
       plain versions on the CPU. An int8 delta goes through the int8
       sweeps, a bf16 one through the f32 sweeps; a burst drained by
-      :meth:`on_update_batch` goes through the batched pair.
+      :meth:`on_update_batch` goes through the batched pair. With
+      ``fed.model_shards`` = S > 1 the flat vector, every GMIS snapshot and
+      every delta are split into S contiguous shards over the ``model``
+      axis of a mesh (``launch/mesh.py``), padded to ``BLOCK * S``, and
+      every sweep runs per shard with one fixed-order sum of the partials
+      (``kernels/fedagg/sharded.py``).
     """
 
     name = "asyncfeded"
@@ -184,10 +198,17 @@ class AsyncFedEDServer(AsyncServer):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "pallas" and per_leaf:
             raise ValueError("per-leaf staleness needs the pytree backend")
-        if fed.model_shards > 1:
-            raise NotImplementedError(
-                "model-sharded flat state is not ported yet (ROADMAP.md A17)")
         self.backend = backend
+        # the model axis: S > 1 splits the flat vector and, through the
+        # GMIS, every snapshot; aggregation goes through the sharded twins
+        self._shards = fed.model_shards if backend == "pallas" else 1
+        self._mesh = None
+        agg = ops
+        if self._shards > 1:
+            self._mesh = mesh_lib.make_fedagg_mesh(
+                self._shards, device=pt.tree_leaves(params)[0].device)
+            agg = sharded
+        self._agg = {name: getattr(agg, name) for name in _AGG_OPS}
         self._flat: Optional[pt.FlatParams] = None
         self._zeros = None
         super().__init__(params, fed)    # routes through the params setter
@@ -207,16 +228,34 @@ class AsyncFedEDServer(AsyncServer):
     @property
     def params(self) -> PyTree:
         if self.backend == "pallas":
+            if self._shards > 1 and self._flat._tree_cache is None:
+                # the tree view leaves the server (downloads, eval): built
+                # from one gathered copy on the home device, once per model
+                self._flat._tree_cache = self._flat.spec.unflatten(
+                    specs.gather_flat(self._flat.vec, self._mesh.home))
             return self._flat.tree       # lazily unflattened views, cached
         return self._params
 
     @params.setter
     def params(self, value: PyTree) -> None:
         if self.backend == "pallas":
-            self._flat = pt.FlatParams.from_tree(value, block=fedagg.BLOCK)
-            self._zeros = self._flat.spec.zeros()
+            # padded to BLOCK * S, so that every model shard is a whole
+            # number of kernel blocks; the padding is zeros
+            self._flat = pt.FlatParams.from_tree(
+                value, block=fedagg.BLOCK * self._shards)
+            self._zeros = self._split(self._flat.spec.zeros())
+            if self._shards > 1:
+                self._flat = pt.FlatParams(self._split(self._flat.vec),
+                                           self._flat.spec,
+                                           tree_cache=value)
         else:
             self._params = value
+
+    def _split(self, vec: torch.Tensor):
+        """A padded flat vector (or a (B, n) stack) in the server's layout:
+        itself, or its model shards."""
+        return vec if self._mesh is None else specs.split_flat(vec,
+                                                               self._mesh)
 
     def _gmis_state(self):
         """What the GMIS stores: flat vectors under the flat backend (a
@@ -230,23 +269,29 @@ class AsyncFedEDServer(AsyncServer):
         (``checkpoint.save_flat``); the tree backend the params tree."""
         step = self.t if step is None else step
         if self.backend == "pallas":
+            vec = self._flat.vec
+            if self._shards > 1:
+                vec = specs.gather_flat(vec, self._mesh.home)
             return checkpoint.save_flat(
-                self._flat.vec, self._flat.spec.n, directory, step,
-                block=self._flat.spec.block, model_shards=1)
+                vec, self._flat.spec.n, directory, step,
+                block=self._flat.spec.block, model_shards=self._shards)
         return checkpoint.save_pytree(self.params, directory, step)
 
     def restore_checkpoint(self, directory: str,
                            step: Optional[int] = None) -> None:
         """Restore the global model saved by :meth:`save_checkpoint`, by
         this package or the JAX one. A flat checkpoint must hold this
-        model's true-element count and is re-padded to this server's
-        layout."""
+        model's true-element count and is re-padded (and re-split) to this
+        server's layout, so a vector saved under one ``model_shards``
+        restores exactly under another."""
         if self.backend == "pallas":
             vec, _ = checkpoint.restore_flat(
                 directory, step, n=self._flat.spec.n,
                 n_padded=self._flat.spec.n_padded)
+            home = (self._flat.vec.device if self._mesh is None
+                    else self._mesh.home)
             self._flat = self._flat.replace(
-                torch.from_numpy(vec).to(self._flat.vec.device))
+                self._split(torch.from_numpy(vec).to(home)))
         else:
             self.params = checkpoint.restore_pytree(self.params, directory,
                                                     step)
@@ -282,9 +327,9 @@ class AsyncFedEDServer(AsyncServer):
 
     def _wire_padded(self, cd):
         """A compressed payload's (q, scales) padded to the server's flat
-        length. Clients pad to BLOCK as the server does, so this only pads
-        a payload built for a shorter layout: appended zero q blocks carry
-        zero scales and dequantize to exactly 0."""
+        length. Clients pad to BLOCK; a sharded server pads to BLOCK * S,
+        which can be longer: appended zero q blocks carry zero scales and
+        dequantize to exactly 0."""
         n_pad = self._flat.spec.n_padded
         if cd.q.shape[0] == n_pad:
             return cd.q, cd.scales
@@ -295,6 +340,12 @@ class AsyncFedEDServer(AsyncServer):
                 scales, (0, n_pad // fedagg.QBLOCK - scales.shape[0]))
         return q, scales
 
+    def _split_scales(self, scales: torch.Tensor):
+        """int8 scales (or a stack of them) in the server's layout: beside
+        the q blocks of :meth:`_split`."""
+        return (scales if self._mesh is None
+                else specs.split_scales(scales, self._mesh))
+
     def _aggregate_flat(self, upd: ClientUpdate):
         fed = self.fed
         disp = self.gmis_mode == "displacement"
@@ -303,42 +354,46 @@ class AsyncFedEDServer(AsyncServer):
             # q and scales go straight into the int8 kernels, dequantized
             # in registers
             q, qscales = self._wire_padded(cd)
+            sq, sscales = self._split(q), self._split_scales(qscales)
             if disp:
                 new_vec, gamma, eta, dist, dnorm = (
-                    ops.flat_aggregate_displacement_q(
+                    self._agg["flat_aggregate_displacement_q"](
                         self._flat.vec, self.gmis.displacement(upd.client_id),
-                        q, qscales, self._zeros, lam=fed.lam, eps=fed.eps,
+                        sq, sscales, self._zeros, lam=fed.lam, eps=fed.eps,
                         cap=fed.staleness_cap))
                 self.gmis.release(upd.client_id)
             else:
                 stale, _ = self.gmis.get(upd.snapshot_iter)
-                new_vec, gamma, eta, dist, dnorm = ops.flat_aggregate_q(
-                    self._flat.vec, stale, q, qscales, lam=fed.lam,
+                new_vec, gamma, eta, dist, dnorm = self._agg[
+                    "flat_aggregate_q"](
+                    self._flat.vec, stale, sq, sscales, lam=fed.lam,
                     eps=fed.eps, cap=fed.staleness_cap)
             self._flat = self._flat.replace(new_vec)
             # the ring GMIS ignores the delta; only displacement
             # accumulators need it in f32
-            d = (compression.dequantize(
-                    dataclasses.replace(cd, q=q, scales=qscales))
+            d = (self._split(compression.dequantize(
+                    dataclasses.replace(cd, q=q, scales=qscales)))
                  if disp else cd)
             return gamma, eta, dist, dnorm, d
         # a bf16 payload rides the f32 kernels (upcast on load)
-        d = (self._wire_padded(cd)[0] if cd is not None
-             else self._flat.spec.flatten(upd.delta))
+        d = self._split(self._wire_padded(cd)[0] if cd is not None
+                        else self._flat.spec.flatten(upd.delta))
         if disp:
-            new_vec, gamma, eta, dist, dnorm = ops.flat_aggregate_displacement(
+            new_vec, gamma, eta, dist, dnorm = self._agg[
+                "flat_aggregate_displacement"](
                 self._flat.vec, self.gmis.displacement(upd.client_id), d,
                 self._zeros, lam=fed.lam, eps=fed.eps, cap=fed.staleness_cap)
             self.gmis.release(upd.client_id)
         else:
             stale, _ = self.gmis.get(upd.snapshot_iter)
-            new_vec, gamma, eta, dist, dnorm = ops.flat_aggregate(
+            new_vec, gamma, eta, dist, dnorm = self._agg["flat_aggregate"](
                 self._flat.vec, stale, d, lam=fed.lam, eps=fed.eps,
                 cap=fed.staleness_cap)
         self._flat = self._flat.replace(new_vec)
         # eta * (a bf16 vector) is bf16 in PyTorch and f32 in JAX: the
         # displacement accumulators take the payload in f32
-        return gamma, eta, dist, dnorm, (d.float() if disp else d)
+        return gamma, eta, dist, dnorm, (pt.tree_map(lambda t: t.float(), d)
+                                         if disp else d)
 
     def _reject_reply(self, upd: ClientUpdate, raw_norm: float
                       ) -> ServerReply:
@@ -405,8 +460,10 @@ class AsyncFedEDServer(AsyncServer):
             return replies
         fed = self.fed
         mode = modes.pop()
-        stales = torch.stack([self.gmis.get(u.snapshot_iter)[0]
-                              for u in upds])
+        snaps = [self.gmis.get(u.snapshot_iter)[0] for u in upds]
+        # a sharded server stacks each shard's snapshots on its own device
+        stales = (torch.stack(snaps) if self._mesh is None else
+                  tuple(torch.stack(rows) for rows in zip(*snaps)))
         # the kernel-emitted raw norms feed the screen in arrival order;
         # its scale factors fold into the schedule
         screen_fn = (None if self.screen is None else
@@ -415,11 +472,12 @@ class AsyncFedEDServer(AsyncServer):
         if mode == "int8":
             wires = [self._wire_padded(u.delta) for u in upds]
             new_vec, etas, gammas, dists, dnorms, scales = (
-                ops.flat_aggregate_batched_q(
+                self._agg["flat_aggregate_batched_q"](
                     self._flat.vec, stales,
-                    torch.stack([q for q, _ in wires]),
-                    torch.stack([s for _, s in wires]), lam=fed.lam,
-                    eps=fed.eps, cap=fed.staleness_cap, screen=screen_fn))
+                    self._split(torch.stack([q for q, _ in wires])),
+                    self._split_scales(torch.stack([s for _, s in wires])),
+                    lam=fed.lam, eps=fed.eps, cap=fed.staleness_cap,
+                    screen=screen_fn))
         else:
             # "off" flattens trees; "bf16" stacks the payloads, which ride
             # the f32 kernels
@@ -428,8 +486,8 @@ class AsyncFedEDServer(AsyncServer):
                                   else self._flat.spec.flatten(u.delta)
                                   for u in upds])
             new_vec, etas, gammas, dists, dnorms, scales = (
-                ops.flat_aggregate_batched(
-                    self._flat.vec, stales, deltas, lam=fed.lam,
+                self._agg["flat_aggregate_batched"](
+                    self._flat.vec, stales, self._split(deltas), lam=fed.lam,
                     eps=fed.eps, cap=fed.staleness_cap, screen=screen_fn))
         self._flat = self._flat.replace(new_vec)
         k_nexts = []

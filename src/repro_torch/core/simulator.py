@@ -25,10 +25,11 @@ seeded with ``seed`` draws them.
 The port runs the asynchronous roster loop, burst windows, compressed
 deltas and the adversary, the synchronous rounds of FedAvg/FedProx (whose
 round lasts as long as its slowest client), the ``loop`` and ``cohort``
-client engines, and the population engine (``FedConfig.population``:
-clients check in from a distribution and materialize on first contact).
-The pod-sharded cohort engine is a later slice and raises
-``NotImplementedError``.
+client engines and the pod engine ``cohort_sharded`` (the cohort engine
+over the ``pod`` axis of a mesh, ``launch/mesh.py``), the model-sharded
+flat server (``FedConfig.model_shards``), and the population engine
+(``FedConfig.population``: clients check in from a distribution and
+materialize on first contact).
 """
 from __future__ import annotations
 
@@ -128,13 +129,6 @@ class SimResult:
         return out
 
 
-def _check_supported(fed: FedConfig) -> None:
-    if fed.client_engine == "cohort_sharded":
-        raise NotImplementedError(
-            "FedConfig.client_engine='cohort_sharded' is not ported yet "
-            "(ROADMAP.md A17)")
-
-
 class FederatedSimulation:
     def __init__(self, task, fed: FedConfig,
                  algorithm: str = "asyncfeded", seed: int = 0,
@@ -147,7 +141,6 @@ class FederatedSimulation:
         """``device`` defaults to CUDA (raising when there is none);
         ``init_params`` is a tree of tensors to start from instead of the
         seeded init (it is moved to ``device``)."""
-        _check_supported(fed)
         self.device = resolve_device(device)
         self.task = tasks_mod.as_task(task)
         self.fed = fed
@@ -241,7 +234,7 @@ class FederatedSimulation:
             plan = budget_mod.plan_cohort(
                 self.task, self.fed, clients=len(jobs), k=max(ks),
                 param_bytes=self.model_bytes, prox_mu=self.prox_mu,
-                ragged=len(set(ks)) > 1)
+                ragged=len(set(ks)) > 1, device=self.device)
             self.cohort_plan = plan
             if plan.engine != "loop":
                 # run_cohort collapses one shared snapshot object (every

@@ -285,11 +285,23 @@ def load_libraries() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
     _bind(blib, ("fedagg_batched_max_b", "fedagg_batched_init"), [])
     if blib.fedagg_batched_max_b() != MAX_BATCH:
         raise RuntimeError("fedagg_batched.cu and MAX_BATCH disagree")
-    err = blib.fedagg_batched_init()
-    if err:
-        raise RuntimeError("fedagg_batched_init failed: "
-                           f"{lib.fedagg_error_string(err).decode()}")
+    _batched_ready(torch.device("cuda", torch.cuda.current_device()),
+                   (lib, blib))
     return lib, blib
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_ready(device: torch.device, libs) -> None:
+    """Let the batched norms kernel use its shared memory on ``device``:
+    the attribute is set per device, on the current one when the libraries
+    load and on any other at its first burst (an eager call, as the
+    ticket's first is, so that no captured launch makes it)."""
+    lib, blib = libs
+    with torch.cuda.device(device):
+        err = blib.fedagg_batched_init()
+    if err:
+        raise RuntimeError(f"fedagg_batched_init failed on {device}: "
+                           f"{lib.fedagg_error_string(err).decode()}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -509,7 +521,9 @@ def norms_batched_packed(x_t: torch.Tensor, x_stales: torch.Tensor,
             norms_batched_q_plain(x_t, x_stales, deltas, scales) if quant
             else norms_batched_plain(x_t, x_stales, deltas))
         return torch.cat([dist, dn, cross.reshape(-1), gram.reshape(-1)])
-    blib = load_libraries()[1]
+    libs = load_libraries()
+    blib = libs[1]
+    _batched_ready(x_t.device, libs)
     out_len = 2 * b + 2 * b * b
     buf = torch.empty(out_len + blib.fedagg_norms_batched_scratch(n, b),
                       dtype=torch.float32, device=x_t.device)

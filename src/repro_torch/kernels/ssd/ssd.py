@@ -113,11 +113,21 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = _INT
     lib.ssd_error_string.argtypes = [_INT]
     lib.ssd_error_string.restype = ctypes.c_char_p
-    err = lib.ssd_init()
-    if err:
-        raise RuntimeError("ssd_init failed: "
-                           f"{lib.ssd_error_string(err).decode()}")
+    _ready(torch.device("cuda", torch.cuda.current_device()), lib)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ready(device: torch.device, lib: ctypes.CDLL) -> None:
+    """Let the chunk and output passes take their shared memory on
+    ``device``: the attribute is set per device, on the current one when
+    the library loads and on any other at its first scan (the pod engine
+    trains on several cards)."""
+    with torch.cuda.device(device):
+        err = lib.ssd_init()
+    if err:
+        raise RuntimeError(f"ssd_init failed on {device}: "
+                           f"{lib.ssd_error_string(err).decode()}")
 
 
 def launch(x: torch.Tensor, dt: torch.Tensor, a_rows: torch.Tensor,
@@ -154,6 +164,7 @@ def launch(x: torch.Tensor, dt: torch.Tensor, a_rows: torch.Tensor,
         raise ValueError(f"{h} heads do not split into {g} groups")
     chunk = chunk_of(chunk, s)
     lib = load_library()
+    _ready(dev, lib)
     if (p > lib.ssd_max_p() or n > lib.ssd_max_n()
             or chunk > lib.ssd_max_chunk()):
         raise ValueError(f"the kernel takes P <= {lib.ssd_max_p()}, N <= "

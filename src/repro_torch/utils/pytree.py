@@ -81,8 +81,19 @@ def tree_scale(a: PyTree, s) -> PyTree:
 
 
 def tree_axpy(alpha, x: PyTree, y: PyTree) -> PyTree:
-    """alpha * x + y, leafwise (the Eq.(5) server update)."""
-    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+    """alpha * x + y, leafwise (the Eq.(5) server update). A tensor
+    ``alpha`` is read on each leaf's device (the leaves of a model-sharded
+    vector may lie on several)."""
+    return tree_map(lambda xi, yi: _scalar_at(alpha, xi) * xi + yi, x, y)
+
+
+def _scalar_at(alpha, leaf: torch.Tensor):
+    """``alpha`` where ``leaf`` can use it: a tensor on another CUDA device
+    is copied to the leaf's; numbers and CPU scalars pass as they are."""
+    if (isinstance(alpha, torch.Tensor) and alpha.device.type != "cpu"
+            and alpha.device != leaf.device):
+        return alpha.to(leaf.device)
+    return alpha
 
 
 def _sum_f32(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -202,15 +213,19 @@ class FlatParams:
     the global model in this form so every Eq.(5-7) step is a kernel sweep
     over one contiguous vector instead of a walk over the tree. ``tree``
     materializes the tree view lazily and caches it; the cache is dropped
-    whenever the vector is replaced.
+    whenever the vector is replaced. ``vec`` may also be a model-sharded
+    vector, the tuple of its contiguous shards (``sharding/specs.py``);
+    its owner then builds the tree view from a gathered copy.
     """
 
     __slots__ = ("vec", "spec", "_tree_cache")
 
     def __init__(self, vec: torch.Tensor, spec: FlatSpec,
                  tree_cache: Optional[PyTree] = None):
-        assert tuple(vec.shape) == (spec.n_padded,), (vec.shape,
-                                                      spec.n_padded)
+        parts = vec if isinstance(vec, tuple) else (vec,)
+        assert all(p.dim() == 1 for p in parts), [p.shape for p in parts]
+        n = sum(p.shape[0] for p in parts)
+        assert n == spec.n_padded, (n, spec.n_padded)
         self.vec = vec
         self.spec = spec
         self._tree_cache = tree_cache

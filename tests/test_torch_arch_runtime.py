@@ -4,7 +4,7 @@ package's: the contract of the reference's ``TestArchRuntime`` and
 
 * Each client engine of the port gives the trace of the same engine of the
   reference from the reference's initial params (the loop and the cohort
-  engine; the pod-sharded one is ROADMAP.md A17): the reference's tiny
+  engine; the pod engine in ``test_torch_cohort_sharded.py``): the reference's tiny
   h2o-danube-1.8b (1 layer, d_model 64, 16 tokens, batch 2, three clients,
   K 2, six updates). Traces ``(iteration, client_id, lag, k_next)`` equal,
   gamma, eta and the eval losses at rtol 1e-4, atol 1e-5. A tiny
@@ -199,11 +199,16 @@ def test_run_paper_and_cli(tmp_path):
 
 
 def test_cohort_sharded_names_a17():
-    with pytest.raises(NotImplementedError, match="A17"):
-        train.run_arch_federated("h2o-danube-1.8b", steps=1,
-                                 client_engine="cohort_sharded",
-                                 device="cpu", d_model=64, seq_len=16,
-                                 num_layers=1)
+    """The pod engine (A17, ported) trains the arch task: on one device its
+    one pod gives the cohort engine's run, history for history."""
+    kw = dict(steps=2, device="cpu", d_model=64, seq_len=16, num_layers=1)
+    got = train.run_arch_federated("h2o-danube-1.8b",
+                                   client_engine="cohort_sharded", **kw)
+    want = train.run_arch_federated("h2o-danube-1.8b",
+                                    client_engine="cohort", **kw)
+    assert got["updates"] >= 2
+    assert got["history"] == want["history"]
+    assert got["losses"] == want["losses"]
 
 
 @pytest.mark.parametrize("name", ["arch-danube-smoke", "arch-mamba2-smoke",

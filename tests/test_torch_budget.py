@@ -123,11 +123,22 @@ def test_plan_divisors_equal_reference():
 
 
 def test_sharded_engine_raises_naming_a17():
+    """The pod engine (A17) is ported: its plan divides by the pods its
+    mesh gives, the reference's plan at that pod count (one CPU device: 1
+    pod; under the device hook: the bucket's power of two, at most the
+    device count)."""
+    from repro_torch.launch import mesh
     fed = dataclasses.replace(TC.SYNTHETIC_1_1.fed,
                               client_engine="cohort_sharded")
-    with pytest.raises(NotImplementedError, match="A17"):
-        budget.plan_cohort(TC.SYNTHETIC_1_1, fed, clients=4, k=2,
-                           param_bytes=100)
+    jfed = dataclasses.replace(C.SYNTHETIC_1_1.fed,
+                               client_engine="cohort_sharded")
+    kw = dict(clients=5, k=2, param_bytes=25_256, budget_bytes=40_000)
+    for repeat, pods in ((1, 1), (4, 4), (16, 8)):
+        with mesh.repeat_devices(repeat):
+            got = budget.plan_cohort(TC.SYNTHETIC_1_1, fed, device="cpu",
+                                     **kw)
+        assert got.to_dict() == jbudget.plan_cohort(
+            C.SYNTHETIC_1_1, jfed, pods=pods, **kw).to_dict()
 
 
 def test_budget_from_config():

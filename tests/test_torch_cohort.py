@@ -212,9 +212,14 @@ def test_empty_cohort_and_engines():
     assert cohort.run_cohort(TC.SYNTHETIC_1_1, [], [], [], []) == []
     clients = make_clients("synthetic-1-1", 2)
     p = tparams(jparams("synthetic-1-1"))
-    with pytest.raises(NotImplementedError, match="A17"):
-        cohort.run_cohort(TC.SYNTHETIC_1_1, clients, p, [2, 2], [1, 1],
-                          engine="cohort_sharded")
+    # the pod engine (A17, ported) on one device: the cohort engine's rows
+    same = make_clients("synthetic-1-1", 2)
+    got = cohort.run_cohort(TC.SYNTHETIC_1_1, clients, p, [2, 2], [1, 1],
+                            engine="cohort_sharded")
+    want = cohort.run_cohort(TC.SYNTHETIC_1_1, same, p, [2, 2], [1, 1])
+    for (u1, l1), (u2, l2) in zip(got, want):
+        assert same_meta(u1, u2) and l1 == l2
+        assert_close(u1.delta, u2.delta, rtol=0.0, atol=0.0)
     with pytest.raises(ValueError, match="engine"):
         cohort.run_cohort(TC.SYNTHETIC_1_1, clients, p, [2, 2], [1, 1],
                           engine="loop")

@@ -57,3 +57,11 @@ def test_pattern_catches_the_forms():
     for line in ("import repro_torch", "from repro_torch.core import server",
                  "import jaxlib_free_thing", "# from repro.core import x"):
         assert not BAD_IMPORT.match(line), line
+
+
+@pytest.mark.parametrize("module", ["launch/mesh.py", "sharding/specs.py",
+                                    "kernels/fedagg/sharded.py"])
+def test_sharded_modules_are_guarded(module):
+    """The model-sharding and pod-engine modules are among the files both
+    checks above cover."""
+    assert PORT / module in FILES

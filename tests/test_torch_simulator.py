@@ -92,15 +92,20 @@ def test_default_device_needs_cuda():
 @pytest.mark.parametrize("change", [dict(client_engine="cohort_sharded"),
                                     dict(model_shards=2, backend="pallas")])
 def test_later_slices_raise(change):
-    """Each later slice raises naming its ROADMAP item when the simulation
-    is built: the pod-sharded cohort engine and the model-sharded flat
-    state (A17). The population and cohort engines, which raised here
-    before they were ported, are held to the reference in
-    ``test_torch_population.py`` and ``test_torch_cohort.py``."""
+    """The pod engine and the model-sharded flat state (A17) raised here
+    before they were ported; they are held to the reference in
+    ``test_torch_cohort_sharded.py`` and ``test_torch_sharded.py``. Now
+    the pod engine runs on one device, and ``model_shards=2`` raises the
+    mesh's error when the simulation is built on one device, as the
+    reference does on one chip."""
     fed = dataclasses.replace(TC.SYNTHETIC_1_1.fed, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A17"):
-        FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu").run(
-            max_time=5.0)
+    if fed.model_shards > 1:
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu")
+        return
+    res = FederatedSimulation(TC.SYNTHETIC_1_1, fed, device="cpu").run(
+        max_time=5.0, max_updates=10)
+    assert res.total_updates == 10
 
 
 def test_own_init_runs_and_learns():
