@@ -53,7 +53,19 @@ S = 1 run; the pod engine on synthetic-burst with int8 and bf16 wire forms
 against the cohort engine and the CPU; a checkpoint saved on 4 shards
 restored on 1; and mamba2-1.3b at full width on 2 pods and 2 model shards
 against the cohort run; and the three registered
-arch scenarios on the card against the CPU port. ``fedagg_fused``, which no path of
+arch scenarios on the card against the CPU port. The last architecture
+slice's seven configurations are served at full width in f32 beside the
+first two: qwen2-moe-a2.7b (gshard mixture of experts, 14.32 B params) and
+musicgen-large (audio, four codebooks a step) at full depth, qwen3-moe-
+30b-a3b, granite-34b (MQA: 48 query heads on one kv head through the
+decode kernel's head groups), qwen2-vl-72b, phi3-medium-14b and
+moonshot-v1-16b-a3b at a cut depth (``SERVE_DEPTH``); each is held against
+the CPU port at full width and two or three layers (for the MoE models
+also the share of router choices the devices share and the smallest
+top-k gaps; for qwen2-vl-72b a forward with patch embeddings), and one
+reduced model of each new family trains federated on the loop and cohort
+engines through the flat server on the card and on the CPU
+(``family_train``). ``fedagg_fused``, which no path of
 either package calls, is held to the bit against ``fedagg_axpy`` and
 ``fedagg_norms``. The line of its
 standard output before the last is the card's name and power limit as
@@ -250,11 +262,16 @@ ACC_ATOL = 0.01
 #: swa_decode_attention at (B, S, H, KV, D, softcap, valid lengths); the
 #: first of each is the recurrentgemma-2b serve shape (prompt 2064 + 16 new
 #: tokens: a full 2048-slot ring), the others a ragged edge and, for the
-#: decode, the short serve run's 48-slot cache and a GQA map with a softcap
+#: decode, the short serve run's 48-slot cache, a GQA map with a softcap,
+#: and the short serve runs' caches of granite-34b (MQA: 48 query heads on
+#: one kv head, three head groups over each piece) and qwen3-moe-30b-a3b
+#: (32 heads on 4)
 RGLRU_SHAPES = [(4, 2064, 2560), (1, 100, 96)]
 SWA_SHAPES = [(4, 2048, 10, 1, 256, 0.0, (2048,) * 4),
               (4, 48, 10, 1, 256, 0.0, (33, 40, 47, 30)),
-              (2, 256, 8, 2, 64, 30.0, (200, 256))]
+              (2, 256, 8, 2, 64, 30.0, (200, 256)),
+              (4, 48, 48, 1, 128, 0.0, (33, 40, 47, 30)),
+              (4, 48, 32, 4, 128, 0.0, (33, 40, 47, 30))]
 #: their tolerances against the plain versions, absolute: the scan's carry
 #: across chunks and the decode's merge of pieces sum in other orders
 RGLRU_ATOL = 1e-5
@@ -289,7 +306,24 @@ PREVIOUS_NORMS_SIZES = (65536, 1 << 28)
 #: slots masked (S = 48); mamba2-1.3b's first scans eight 256-step chunks,
 #: its second one chunk cut to 32
 SERVES = {"recurrentgemma-2b": [(4, 2064, 16), (4, 32, 16)],
-          "mamba2-1.3b": [(4, 2048, 16), (4, 32, 16)]}
+          "mamba2-1.3b": [(4, 2048, 16), (4, 32, 16)],
+          "qwen2-moe-a2.7b": [(4, 512, 16), (4, 32, 16)],
+          "musicgen-large": [(4, 32, 16)],
+          "qwen3-moe-30b-a3b": [(4, 32, 16)],
+          "granite-34b": [(4, 32, 16)],
+          "qwen2-vl-72b": [(4, 32, 16)],
+          "phi3-medium-14b": [(4, 32, 16)],
+          "moonshot-v1-16b-a3b": [(4, 32, 16)]}
+#: the last architecture slice's serve runs, all at full width in f32:
+#: qwen2-moe-a2.7b (24 layers, 14.32 B params, 57.3 GB; gshard MoE, its
+#: prompt of 512 a 2048-token dispatch) and musicgen-large (48 layers) at
+#: full depth, the others with their depth cut to these layers so that the
+#: weights fit the card and the phase its time: qwen3-moe-30b-a3b 4 of 48,
+#: granite-34b 2 of 88 (MQA through the decode kernel's head groups),
+#: qwen2-vl-72b 2 of 80, phi3-medium-14b 2 of 40, moonshot-v1-16b-a3b 2 of
+#: 48
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 4, "granite-34b": 2, "qwen2-vl-72b": 2,
+               "phi3-medium-14b": 2, "moonshot-v1-16b-a3b": 2}
 #: CUDA against the CPU port: full width, 3 layers, batch 1, 8 tokens; the
 #: CPU is fed the card's tokens. recurrentgemma-2b: one (rglru, rglru, attn)
 #: group, prompt 64; mamba2-1.3b: prompt 512, two chunks, so the state
@@ -300,6 +334,26 @@ PARITY = {"recurrentgemma-2b": dict(num_layers=3, batch=1, prompt=64, gen=8,
                                     rtol=1e-4),
           "mamba2-1.3b": dict(num_layers=3, batch=1, prompt=512, gen=8,
                               rtol=1e-4)}
+#: the last architecture slice's seven at full width, batch 1, prompt 64, 8
+#: tokens: three layers of the MoE and audio models, two of the dense and
+#: vlm ones (their layers are the widest). The MoE models run gshard, so
+#: the prompt's 64 tokens overflow some experts' capacity (qwen2-moe-a2.7b:
+#: 5 slots per expert for 256 pairs over 60 experts) and drop pairs on
+#: both devices. qwen2-vl-72b also runs one forward with 16 patch
+#: embeddings over the 64 positions.
+for _arch, _layers in (("qwen2-moe-a2.7b", 3), ("qwen3-moe-30b-a3b", 3),
+                       ("moonshot-v1-16b-a3b", 3), ("musicgen-large", 3),
+                       ("granite-34b", 2), ("phi3-medium-14b", 2),
+                       ("qwen2-vl-72b", 2)):
+    PARITY[_arch] = dict(num_layers=_layers, batch=1, prompt=64, gen=8,
+                         rtol=1e-4)
+#: qwen2-vl-72b's patches in the parity forward
+VLM_PATCHES = 16
+#: federated training of one reduced arch of each new family on the card,
+#: loop and cohort engines, the flat server (the fedagg kernels), against
+#: the same runs on the CPU: (arch, updates)
+FAMILY_TRAIN = [("qwen2-moe-a2.7b", 8), ("musicgen-large", 8),
+                ("qwen2-vl-72b", 8)]
 
 
 def emit(obj) -> None:
@@ -1463,8 +1517,9 @@ def expected_launches(kinds, gen_len: int) -> dict:
 
 
 def phase_serve(torch, arch: str, kernels: dict, launches: dict) -> None:
-    """``arch`` served at full width and depth in f32 from seeded random
-    weights (``SERVES[arch]``, after an unmeasured warm-up run): the
+    """``arch`` served at full width and depth (``SERVE_DEPTH`` cuts the
+    depth of some) in f32 from seeded random weights (``SERVES[arch]``,
+    after an unmeasured warm-up run): the
     serving kernels (``kernels``, by name) must launch as
     :func:`expected_launches` says, the logits must be finite and the
     tokens in the vocabulary. Then a short run once more under
@@ -1474,11 +1529,17 @@ def phase_serve(torch, arch: str, kernels: dict, launches: dict) -> None:
 
     dev = torch.device("cuda:0")
     cfg = serve.serve_config(arch, reduced=False)
+    full_layers = cfg.num_layers
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     kinds = cfg.layer_kinds
+    per_step = cfg.num_codebooks if cfg.family == "audio" else 1
     serve.generate(params, cfg, serve.make_prompt(cfg, 1, 32, 1, dev), 2)
     for batch, prompt_len, gen_len in SERVES[arch]:
         prompt = serve.make_prompt(cfg, batch, prompt_len, 0, dev)
@@ -1495,12 +1556,14 @@ def phase_serve(torch, arch: str, kernels: dict, launches: dict) -> None:
               f"{label}: launches {counts}")
         check(all(bool(torch.isfinite(l).all()) for l in gen.logits),
               f"{label}: non-finite logits")
-        check(tuple(gen.tokens.shape) == (batch, gen_len)
+        check(tuple(gen.tokens.shape) == (batch, gen_len * per_step)
               and 0 <= int(gen.tokens.min())
               and int(gen.tokens.max()) < cfg.vocab_size,
               f"{label}: tokens {gen.tokens.shape}")
         emit({"phase": "serve", "run": label, "arch": cfg.arch_id,
               "params": cfg.param_count(), "layers": cfg.num_layers,
+              "full_layers": full_layers,
+              "moe": cfg.moe.impl if cfg.moe is not None else None,
               "dtype": cfg.dtype, "batch": batch, "prompt": prompt_len,
               "new_tokens": gen_len,
               "ring_slots": (min(cfg.sliding_window, prompt_len + gen_len)
@@ -1509,7 +1572,7 @@ def phase_serve(torch, arch: str, kernels: dict, launches: dict) -> None:
               "decode_s": gen.decode_s,
               "decode_ms_per_step": 1e3 * gen.decode_s / (gen_len - 1),
               "decode_tok_per_s": batch * (gen_len - 1) / gen.decode_s,
-              "peak_gib": peak / 2 ** 30,
+              "peak_gib": peak / 2 ** 30, "init_peak_gib": init_peak / 2 ** 30,
               "resident_before_gib": resident / 2 ** 30, "launches": counts,
               "tokens_row0": gen.tokens[0].tolist()})
         _add(launches, counts)
@@ -1528,14 +1591,49 @@ def phase_serve(torch, arch: str, kernels: dict, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+class RouterLog:
+    """Records every MoE router call while it is entered: the chosen
+    experts, the gap between the k-th and the (k+1)-th largest probability
+    (what decides the choice) and the smallest gap between neighbours of
+    the top k (what orders it; the aux loss reads the first)."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.calls = torch, moe, []
+
+    def __enter__(self):
+        torch, inner = self.torch, self.moe._router
+
+        def recording(p, x, m):
+            w, idx, aux = inner(p, x, m)
+            probs = torch.softmax(torch.einsum(
+                "td,de->te", x, p["router"].to(x.dtype)).float(), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            k = m.num_experts_per_tok
+            self.calls.append((idx.cpu(),
+                               float((top[:, k - 1] - top[:, k]).min()),
+                               float((top[:, :k - 1] - top[:, 1:k]).min())))
+            return w, idx, aux
+
+        self.moe._router = recording
+        self._inner = inner
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self._inner
+
+
 def phase_serve_parity(torch, arch: str) -> None:
     """The port on the card against the port on the CPU at full width and
     ``PARITY[arch]``'s depth, from the same weights: the CPU is fed the
     card's tokens, and every step's logits must agree to ``rtol`` of the
     step's largest |logit|. Prints how many of the card's tokens the CPU's
-    argmax gives too."""
+    argmax gives too; for an MoE model also the share of router choices
+    the two devices share and the smallest probability gaps at the choice
+    (a flip at a gap within f32 noise is a near-tie); for a vlm model one
+    forward with ``VLM_PATCHES`` patch embeddings, held likewise."""
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.utils import pytree as pt
 
     dev = torch.device("cuda:0")
@@ -1545,24 +1643,105 @@ def phase_serve_parity(torch, arch: str) -> None:
     gparams = M.init_model(torch.Generator(device=dev).manual_seed(1), cfg)
     cparams = pt.tree_map(lambda t: t.cpu(), gparams)
     prompt = serve.make_prompt(cfg, par["batch"], par["prompt"], 0, dev)
-    gen = serve.generate(gparams, cfg, prompt, par["gen"], keep_logits=True)
+    with RouterLog(torch, moe) as glog:
+        gen = serve.generate(gparams, cfg, prompt, par["gen"],
+                             keep_logits=True)
     t0 = time.perf_counter()
-    cpu = serve.generate(cparams, cfg, prompt.cpu(), par["gen"],
-                         feed=gen.tokens.cpu(), keep_logits=True)
+    with RouterLog(torch, moe) as clog:
+        cpu = serve.generate(cparams, cfg, prompt.cpu(), par["gen"],
+                             feed=gen.tokens.cpu(), keep_logits=True)
     cpu_s = time.perf_counter() - t0
     errs = [float((a.cpu() - b).abs().max() / b.abs().max())
             for a, b in zip(gen.logits, cpu.logits)]
     agree = float((gen.tokens.cpu() == cpu.tokens).float().mean())
-    emit({"phase": "serve_parity", "arch": cfg.arch_id,
-          "params": cfg.param_count(), "layers": cfg.num_layers,
-          "batch": par["batch"], "prompt": par["prompt"],
-          "new_tokens": par["gen"], "max_scaled_err_per_step": errs,
-          "rtol": par["rtol"], "token_agreement": agree, "cpu_s": cpu_s})
+    row = {"phase": "serve_parity", "arch": cfg.arch_id,
+           "params": cfg.param_count(), "layers": cfg.num_layers,
+           "batch": par["batch"], "prompt": par["prompt"],
+           "new_tokens": par["gen"], "max_scaled_err_per_step": errs,
+           "rtol": par["rtol"], "token_agreement": agree, "cpu_s": cpu_s}
+    if cfg.moe is not None:
+        check(len(glog.calls) == len(clog.calls) > 0,
+              f"{arch}: router calls {len(glog.calls)} / {len(clog.calls)}")
+        same = sum(int((a[0] == b[0]).sum())
+                   for a, b in zip(glog.calls, clog.calls))
+        total = sum(a[0].numel() for a in glog.calls)
+        row.update({"moe": cfg.moe.impl, "router_calls": len(glog.calls),
+                    "router_choice_agreement": same / total,
+                    "min_choice_gap": min(c[1] for c in glog.calls),
+                    "min_order_gap": min(c[2] for c in glog.calls)})
+    if cfg.family == "vlm":
+        g = torch.Generator().manual_seed(2)
+        pe = torch.randn(par["batch"], VLM_PATCHES, cfg.vision_embed_dim,
+                         generator=g)
+        toks = prompt.cpu()
+        got, _, _ = M.forward(gparams, prompt, cfg, patch_embeds=pe.to(dev))
+        want, _, _ = M.forward(cparams, toks, cfg, patch_embeds=pe)
+        text, _, _ = M.forward(cparams, toks, cfg)
+        row["patch_embeds_scaled_err"] = float(
+            (got.cpu() - want).abs().max() / want.abs().max())
+        row["patches_move_logits"] = float((want - text).abs().max())
+        check(row["patch_embeds_scaled_err"] <= par["rtol"],
+              f"{arch}: patch_embeds forward, scaled error "
+              f"{row['patch_embeds_scaled_err']}")
+        check(row["patches_move_logits"] > 0,
+              f"{arch}: the patch embeddings changed no logit")
+        del got, want, text
+    emit(row)
     check(max(errs) <= par["rtol"],
           f"{arch}: CUDA vs CPU logits: scaled errors {errs}")
     check(agree == 1.0, f"{arch}: CUDA vs CPU tokens agree on {agree}")
     del gparams, cparams
+    gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_family_train(torch, fedagg, launches: dict) -> None:
+    """One reduced arch of each family of the last architecture slice
+    (``FAMILY_TRAIN``: MoE, audio, vlm) trained federated by
+    ``launch.train.run_arch_federated`` through the flat server (its
+    sweeps the fedagg kernels), on the loop and the cohort engines, on the
+    card and then on the CPU from the same init: traces equal, gammas to
+    ``ARCH_SCENARIO_RTOL``, and some fedagg kernel launched on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import run_arch_federated
+
+    keys = lambda out: [(h["iteration"], h["client_id"], h["lag"],
+                         h["k_next"]) for h in out["history"]]
+    for arch, cap in FAMILY_TRAIN:
+        for engine in ("loop", "cohort"):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                for k in fedagg.KERNELS:
+                    k.launches = 0
+                with contextlib.redirect_stdout(io.StringIO()):
+                    out[dev] = run_arch_federated(
+                        arch, steps=cap, use_pallas_agg=True,
+                        client_engine=engine, device=dev)
+                if dev == "cuda":
+                    counts = _count(fedagg)
+            res, ref = out["cuda"], out["cpu"]
+            _add(launches, counts)
+            same = keys(res) == keys(ref)
+            gap = max((abs(a["gamma"] - b["gamma"]) / max(abs(b["gamma"]),
+                                                           1e-12)
+                       for a, b in zip(res["history"], ref["history"])),
+                      default=0.0)
+            label = f"train-{arch}-{engine}"
+            emit({"phase": "family_train", "run": label, "arch": arch,
+                  "engine": engine, "updates": res["updates"],
+                  "drains": res["drains"], "wall_s": res["wall_s"],
+                  "cpu_wall_s": ref["wall_s"], "eval_loss": res["losses"],
+                  "cpu_eval_loss": ref["losses"], "trace_identical": same,
+                  "gamma_max_rel_gap": gap, "rtol": ARCH_SCENARIO_RTOL,
+                  "fedagg_launches": counts})
+            check(res["updates"] >= cap, f"{label}: {res['updates']} updates")
+            check(same, f"{label}: CUDA and CPU traces differ")
+            check(gap <= ARCH_SCENARIO_RTOL, f"{label}: gamma gap {gap}")
+            check(sum(counts.values()) > 0, f"{label}: no fedagg launch")
+            check(all(math.isfinite(x) for x in res["losses"]),
+                  f"{label}: eval losses {res['losses']}")
 
 
 def _time_calls(obj, attr: str, acc: list) -> None:
@@ -3404,9 +3583,13 @@ def main(argv) -> int:
     serve_kernels = {"rglru_scan": rglru.rglru_scan,
                      "swa_decode_attention": swa_attn.swa_decode_attention,
                      "ssd_scan": ssd.ssd_scan}
+    serve_s = {}
     for arch in SERVES:
+        t0 = time.perf_counter()
         phase_serve(torch, arch, serve_kernels, launches)
         phase_serve_parity(torch, arch)
+        serve_s[arch] = time.perf_counter() - t0
+    emit({"phase": "phase_seconds", "serve": serve_s})
     t0 = time.perf_counter()
     phase_comparison(torch, fedagg, launches)
     t1 = time.perf_counter()
@@ -3429,11 +3612,14 @@ def main(argv) -> int:
     del arch
     t9 = time.perf_counter()
     phase_arch_scenarios(torch, ssd, launches)
+    t10 = time.perf_counter()
+    phase_family_train(torch, fedagg, launches)
     emit({"phase": "phase_seconds", "comparison": t1 - t0,
           "attack": t2 - t1, "cohort": t3 - t2, "budget": t4 - t3,
           "population": t5 - t4, "checkpoint": t6 - t5,
           "arch_grads": t7 - t6, "arch_train": t8 - t7,
-          "sharded": t9 - t8, "arch_scenarios": time.perf_counter() - t9})
+          "sharded": t9 - t8, "arch_scenarios": t10 - t9,
+          "family_train": time.perf_counter() - t10})
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"

@@ -202,19 +202,6 @@ class PaperTask(LocalTask):
         return fed.local_batch_size * width * 4 * 8
 
 
-def _check_buildable(cfg: ModelConfig) -> None:
-    """The port builds the attention, RG-LRU and SSD blocks with dense MLPs;
-    the rest of the architecture path raises here, before any init."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: mixture-of-experts MLPs are not ported yet "
-            "(ROADMAP.md A18b)")
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} front end is not ported yet "
-            "(ROADMAP.md A18b)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ArchTask(LocalTask):
     """An assigned :class:`ModelConfig` architecture behind the substrate:
@@ -231,9 +218,6 @@ class ArchTask(LocalTask):
 
     kind = "arch"
 
-    def __post_init__(self):
-        _check_buildable(self.cfg)
-
     @property
     def name(self) -> str:
         return f"arch:{self.cfg.arch_id}"
@@ -248,21 +232,26 @@ class ArchTask(LocalTask):
         return pt.tree_map(lambda t: t.to(device),
                            M.init_model(generator, self.cfg))
 
-    def _logits(self, params, inputs):
+    def _logits_labels(self, params, batch):
+        """Logits, the MoE aux loss and the labels in the logits' layout:
+        an audio model's (B, Q, S) labels become (B, S, Q), as its logits
+        are (B, S, Q, V)."""
+        inputs, labels = batch
         logits, aux, _ = M.forward(params, inputs["tokens"], self.cfg,
+                                   patch_embeds=inputs.get("patch_embeds"),
                                    remat=False, q_chunk=self.q_chunk,
                                    kv_chunk=self.kv_chunk)
-        return logits, aux
+        if self.cfg.family == "audio":
+            labels = labels.permute(0, 2, 1)
+        return logits, aux, labels
 
     def loss(self, params, batch, prox=None):
-        inputs, labels = batch
-        logits, aux = self._logits(params, inputs)
+        logits, aux, labels = self._logits_labels(params, batch)
         return L.cross_entropy(logits, labels) + aux + _prox_term(params,
                                                                    prox)
 
     def eval_metrics(self, params, batch):
-        inputs, labels = batch
-        logits, aux = self._logits(params, inputs)
+        logits, aux, labels = self._logits_labels(params, batch)
         acc = torch.mean((torch.argmax(logits, dim=-1) == labels).float())
         return acc, L.cross_entropy(logits, labels) + aux
 
@@ -289,8 +278,15 @@ class ArchTask(LocalTask):
         return self.shape.global_batch
 
     def batch_bytes(self, fed: FedConfig) -> int:
-        # tokens + labels, int32 (text only: the port has no audio or vlm)
-        return 2 * self.shape.global_batch * self.shape.seq_len * 4
+        """int32 tokens and labels (one stream per codebook for audio),
+        plus a vlm's f32 patch embeddings."""
+        b, s = self.shape.global_batch, self.shape.seq_len
+        ncb = self.cfg.num_codebooks if self.cfg.family == "audio" else 1
+        n = 2 * b * ncb * s * 4
+        if self.cfg.family == "vlm" and self.cfg.max_patches:
+            n += (b * min(self.cfg.max_patches, s)
+                  * self.cfg.vision_embed_dim * 4)
+        return n
 
     def activation_bytes(self, fed: FedConfig) -> int:
         """The reference's estimate: twelve f32 residual-stream tensors per
@@ -302,12 +298,11 @@ class ArchTask(LocalTask):
 
 
 def _arch_config(arch) -> ModelConfig:
+    """The registered config of an arch id (``KeyError`` for an unknown one,
+    as the registry raises), or of a ``ModelConfig``'s id; an unregistered
+    ``ModelConfig`` is taken as it is."""
     if isinstance(arch, ModelConfig):
         return ARCHS[arch.arch_id] if arch.arch_id in ARCHS else arch
-    if arch not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not among the port's configs "
-            f"{ARCHS.names()} (the rest are ROADMAP.md A18b)")
     return ARCHS[arch]
 
 
@@ -320,14 +315,16 @@ def arch_task(arch_id, *, seq_len: int = 64, global_batch: int = 4,
 
     The default is the reduced smoke scale of the reference's
     ``launch/train.py``: ``configs.reduced`` (<=2 layers, d_model<=512),
-    f32, seq_len 64 x batch 4. ``full_scale=True`` keeps the assigned
-    config as it is.
+    dense MoE dispatch, f32, seq_len 64 x batch 4. ``full_scale=True``
+    keeps the assigned config as it is.
     """
     cfg = _arch_config(arch_id)
     if not full_scale:
-        cfg = dataclasses.replace(
-            reduced(cfg, num_layers=num_layers, d_model=d_model),
-            dtype="float32")
+        cfg = reduced(cfg, num_layers=num_layers, d_model=d_model)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, impl="dense"))
+        cfg = dataclasses.replace(cfg, dtype="float32")
     shape = dataclasses.replace(TRAIN_4K, seq_len=seq_len,
                                 global_batch=global_batch)
     return ArchTask(cfg=cfg, shape=shape, fed_cfg=fed)

@@ -4,7 +4,7 @@
 // swa_decode_attention (_swa_decode_kernel): one query token per sequence
 // attends over a cache (B, S, KV, D) whose slots at or past valid_len[b] are
 // masked, with an optional tanh softcap, and query head h reads kv head
-// h / (H / KV) (GQA).
+// h / (H / KV) (GQA, and MQA: any number of query heads per kv head).
 //
 // Bound: device memory. The valid slots of K and V are read once (2 * valid
 // * KV * D elements per sequence) for 4 flops per element and query head
@@ -20,19 +20,27 @@
 //
 //  1. Every byte requested up front: a block reads valid_len[b] and exits
 //     at once if its piece lies wholly at or past it (the merge never reads
-//     it). Otherwise its queries and the valid K rows of its piece, then the
+//     it). Otherwise its first group of queries (step 2) and the valid K
+//     rows of its piece, then the
 //     valid V rows, go to shared memory as cp.async copies of 16 bytes (8
 //     bytes for bf16 rows that are not a multiple of 16 bytes) in two commit
 //     groups, issued before any arithmetic: 128 KB per block at the serve
 //     shape. Rows are padded in shared memory so that neighbouring slots
 //     fall in other banks.
-//  2. Scores once K has landed, as a small product held in registers: a
+//  2. The rep = H / KV query heads of the block's kv head go in groups of
+//     at most kHeadGroup (16): steps 2-4 run once per group while the
+//     piece stays in shared memory, so K and V are read from device memory
+//     once per (piece, b, kv head) whatever rep is (granite-34b: 48 heads
+//     on one kv head, three groups). A later group's queries are copied
+//     over the earlier group's once every thread is done with them.
+//     Scores once K has landed, as a small product held in registers: a
 //     tile of 4 slots x 4 query heads (16 sums) is shared by up to 32 lanes,
 //     each taking every dp-th float4 of D, so each K and q element read from
 //     shared memory serves four products, and one shuffle tree per tile
 //     (log2 dp steps over 16 independent sums) finishes the dots: no thread
 //     waits on a chain of warp reductions.
-//  3. Softmax of the piece: 16 lanes per query head, all heads at once.
+//  3. Softmax of the piece: 16 lanes per query head, the group's heads at
+//     once.
 //  4. P.V once V has landed: thread t owns a float4 of output columns and
 //     four heads, reading one V float4 and the four heads' p (one float4)
 //     per slot.
@@ -61,9 +69,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinSplit = 8;    // cache slots per block, at least
 constexpr int kMaxSplit = 64;   // and at most
-constexpr int kMaxRep = 16;     // query heads per kv head
+constexpr int kHeadGroup = 16;  // query heads scored per pass over a piece
 constexpr int kMaxD = 256;      // head dim
-constexpr int kSpStride = kMaxRep + 4;  // floats per slot of scores, 16B rows
+constexpr int kSpStride = kHeadGroup + 4;  // floats per slot of scores
 constexpr int kMergeThreads = 256;
 constexpr int kMergeParts = kMergeThreads / (kMaxD / 4);  // pieces in parallel
 constexpr int kMergePrefetch = 8;  // pieces per part loaded before the wait
@@ -160,14 +168,15 @@ __host__ __device__ __forceinline__ int smem_stride(int row_bytes) {
   return (row_bytes + 8 + 15) / 16 * 16;
 }
 
-// Bytes of the rep queries of one kv head, padded to a multiple of 16.
+// Bytes of one group of queries (at most kHeadGroup heads of the rep that
+// share a kv head), padded to a multiple of 16.
 __host__ __device__ __forceinline__ int query_bytes(int rep, int D,
                                                    int esize) {
-  return (rep * D * esize + 15) / 16 * 16;
+  return ((rep < kHeadGroup ? rep : kHeadGroup) * D * esize + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of one partial block: K and V pieces, the queries
-// and the scores (one row of kSpStride floats per slot).
+// Dynamic shared memory of one partial block: K and V pieces, one group of
+// queries and its scores (one row of kSpStride floats per slot).
 __host__ __device__ __forceinline__ int partial_smem(int split, int D,
                                                     int rep, int esize) {
   return 2 * split * smem_stride(D * esize) + query_bytes(rep, D, esize) +
@@ -199,7 +208,8 @@ __device__ __forceinline__ void fma4(float4& acc, float p, float4 v) {
 }
 
 // Partial (m, l, acc) of one piece of split slots for the rep query heads
-// of one (b, kv head). Partials are laid out [b][h][piece] (acc: [.][D]).
+// of one (b, kv head), kHeadGroup heads at a time. Partials are laid out
+// [b][h][piece] (acc: [.][D]).
 template <typename T, int kCopy>
 __global__ void __launch_bounds__(kThreads)
 swa_partial(const T* __restrict__ q, const T* __restrict__ k,
@@ -231,9 +241,9 @@ swa_partial(const T* __restrict__ q, const T* __restrict__ k,
   const int ns = min(split, nvalid - s0);
   const size_t src_stride = (size_t)KV * row_bytes;
   const size_t off = (((size_t)b * S + s0) * KV + kvh) * (size_t)row_bytes;
-  copy_span<kCopy>(sqb, reinterpret_cast<const unsigned char*>(
-                            q + ((size_t)b * H + (size_t)kvh * rep) * D),
-                   rep * row_bytes);
+  const unsigned char* qsrc = reinterpret_cast<const unsigned char*>(
+      q + ((size_t)b * H + (size_t)kvh * rep) * D);
+  copy_span<kCopy>(sqb, qsrc, min(rep, kHeadGroup) * row_bytes);
   if (!none)
     copy_rows<kCopy>(sk, stride, reinterpret_cast<const unsigned char*>(k) +
                      off, src_stride, ns, row_bytes);
@@ -244,123 +254,136 @@ swa_partial(const T* __restrict__ q, const T* __restrict__ k,
   wait_copies<1>();                      // this thread's queries and K
   __syncthreads();                       // everyone's
 
-  // 2. scores. A tile of 4 slots x 4 heads is shared by dp lanes, each
-  // taking every dp-th float4 of D; the dp partial dots are summed by a
-  // shuffle tree, and the tile's first lane writes the 16 scores.
-  {
-    const int nj = (ns + 3) / 4, ng = (rep + 3) / 4, nt = nj * ng;
-    int dp = 1;
-    while (dp < 32 && 2 * dp <= D4 && 2 * dp * nt <= kThreads) dp *= 2;
-    const int tile = threadIdx.x / dp, lane = threadIdx.x % dp;
-    const int jt = tile % nj, gt = tile / nj;
-    float acc[4][4];
+  for (int g0 = 0; g0 < rep; g0 += kHeadGroup) {
+    const int grp = min(kHeadGroup, rep - g0);
+    const size_t head0 = (size_t)b * H + (size_t)kvh * rep + g0;
+    if (g0) {
+      // every thread is done with the last group's queries and scores
+      __syncthreads();
+      copy_span<kCopy>(sqb, qsrc + (size_t)g0 * row_bytes, grp * row_bytes);
+      commit_copies();
+      wait_copies<0>();
+      __syncthreads();
+    }
+
+    // 2. scores. A tile of 4 slots x 4 heads is shared by dp lanes, each
+    // taking every dp-th float4 of D; the dp partial dots are summed by a
+    // shuffle tree, and the tile's first lane writes the 16 scores.
+    {
+      const int nj = (ns + 3) / 4, ng = (grp + 3) / 4, nt = nj * ng;
+      int dp = 1;
+      while (dp < 32 && 2 * dp <= D4 && 2 * dp * nt <= kThreads) dp *= 2;
+      const int tile = threadIdx.x / dp, lane = threadIdx.x % dp;
+      const int jt = tile % nj, gt = tile / nj;
+      float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][u] = 0.0f;
-    if (tile < nt && !none) {
-      const T* kr[4];
-      const T* qr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kr[i] = reinterpret_cast<const T*>(sk +
-                                           min(4 * jt + i, ns - 1) * stride);
-        qr[i] = sq + min(4 * gt + i, rep - 1) * D;
-      }
-#pragma unroll 2
-      for (int c = lane; c < D4; c += dp) {
-        float4 kk[4], qq[4];
+        for (int u = 0; u < 4; ++u) acc[i][u] = 0.0f;
+      if (tile < nt && !none) {
+        const T* kr[4];
+        const T* qr[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          kk[i] = row4(kr[i], c);
-          qq[i] = row4(qr[i], c);
+          kr[i] = reinterpret_cast<const T*>(
+              sk + min(4 * jt + i, ns - 1) * stride);
+          qr[i] = sq + min(4 * gt + i, grp - 1) * D;
         }
+#pragma unroll 2
+        for (int c = lane; c < D4; c += dp) {
+          float4 kk[4], qq[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            kk[i] = row4(kr[i], c);
+            qq[i] = row4(qr[i], c);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[i][u] += dot4(qq[u], kk[i]);
+        }
+      }
+      for (int o = dp >> 1; o > 0; o >>= 1)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int u = 0; u < 4; ++u) acc[i][u] += dot4(qq[u], kk[i]);
-      }
-    }
-    for (int o = dp >> 1; o > 0; o >>= 1)
+          for (int u = 0; u < 4; ++u)
+            acc[i][u] += __shfl_xor_sync(0xffffffffu, acc[i][u], o);
+      if (lane == 0 && tile < nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          acc[i][u] += __shfl_xor_sync(0xffffffffu, acc[i][u], o);
-    if (lane == 0 && tile < nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = 4 * jt + i, g = 4 * gt + u;
-          if (j < ns && g < rep) {
-            float sc = -1e30f;
-            if (!none) {
-              sc = acc[i][u] * scale;
-              if (softcap > 0.0f) sc = tanhf(sc / softcap) * softcap;
+          for (int u = 0; u < 4; ++u) {
+            const int j = 4 * jt + i, g = 4 * gt + u;
+            if (j < ns && g < grp) {
+              float sc = -1e30f;
+              if (!none) {
+                sc = acc[i][u] * scale;
+                if (softcap > 0.0f) sc = tanhf(sc / softcap) * softcap;
+              }
+              sp[j * kSpStride + g] = sc;
             }
-            sp[j * kSpStride + g] = sc;
           }
-        }
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // per query head (16 lanes each, all heads at once), the piece's max and
-  // sum of exp; p in place
-  {
-    const int g = threadIdx.x >> 4, lane = threadIdx.x & 15;
-    const bool mine = g < rep;
-    float m = -1e30f;
-    if (mine)
-      for (int j = lane; j < ns; j += 16) m = fmaxf(m, sp[j * kSpStride + g]);
+    // per query head (16 lanes each, the group's heads at once), the
+    // piece's max and sum of exp; p in place
+    {
+      const int g = threadIdx.x >> 4, lane = threadIdx.x & 15;
+      const bool mine = g < grp;
+      float m = -1e30f;
+      if (mine)
+        for (int j = lane; j < ns; j += 16)
+          m = fmaxf(m, sp[j * kSpStride + g]);
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.0f;
-    if (mine)
-      for (int j = lane; j < ns; j += 16) {
-        const float p = expf(sp[j * kSpStride + g] - m);
-        sp[j * kSpStride + g] = p;
-        l += p;
+      for (int o = 8; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float l = 0.0f;
+      if (mine)
+        for (int j = lane; j < ns; j += 16) {
+          const float p = expf(sp[j * kSpStride + g] - m);
+          sp[j * kSpStride + g] = p;
+          l += p;
+        }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      if (mine && lane == 0) {
+        const size_t i = (head0 + g) * npieces + piece;
+        pm[i] = m;
+        pl[i] = l;
+      }
+    }
+    wait_copies<0>();                    // this thread's V copies
+    __syncthreads();
+
+    // 3. acc[g][4c..4c+3] = sum_j p[g][j] v[j][4c..4c+3], j in order:
+    // thread t owns column group c = t % D4 and heads 4 (t / D4) .. + 3,
+    // reading the four p of a slot as one float4
+    const int ng = (grp + 3) / 4;
+    if (threadIdx.x < ng * D4) {
+      const int c = threadIdx.x % D4, gt = threadIdx.x / D4;
+      float4 acc[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int j = 0; j < ns; ++j) {
+        const float4 vv =
+            row4(reinterpret_cast<const T*>(sv + j * stride), c);
+        const float4 p = row4(sp + j * kSpStride + 4 * gt, 0);
+        fma4(acc[0], p.x, vv);
+        fma4(acc[1], p.y, vv);
+        fma4(acc[2], p.z, vv);
+        fma4(acc[3], p.w, vv);
       }
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    if (mine && lane == 0) {
-      const size_t i = ((size_t)b * H + (size_t)kvh * rep + g) * npieces +
-                       piece;
-      pm[i] = m;
-      pl[i] = l;
-    }
-  }
-  wait_copies<0>();                      // this thread's V copies
-  __syncthreads();
-
-  // 3. acc[g][4c..4c+3] = sum_j p[g][j] v[j][4c..4c+3], j in order: thread
-  // t owns column group c = t % D4 and heads 4 (t / D4) .. + 3, reading
-  // the four p of a slot as one float4
-  const int ng = (rep + 3) / 4;
-  if (threadIdx.x < ng * D4) {
-    const int c = threadIdx.x % D4, gt = threadIdx.x / D4;
-    float4 acc[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-    for (int j = 0; j < ns; ++j) {
-      const float4 vv = row4(reinterpret_cast<const T*>(sv + j * stride), c);
-      const float4 p = row4(sp + j * kSpStride + 4 * gt, 0);
-      fma4(acc[0], p.x, vv);
-      fma4(acc[1], p.y, vv);
-      fma4(acc[2], p.z, vv);
-      fma4(acc[3], p.w, vv);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int g = 4 * gt + u;
-      if (g < rep)
-        store4(pacc + (((size_t)b * H + (size_t)kvh * rep + g) * npieces +
-                       piece) * D + 4 * c,
-               acc[u]);
+      for (int u = 0; u < 4; ++u) {
+        const int g = 4 * gt + u;
+        if (g < grp)
+          store4(pacc + ((head0 + g) * npieces + piece) * D + 4 * c, acc[u]);
+      }
     }
   }
 }
@@ -463,7 +486,7 @@ template <typename T, int kCopy>
 cudaError_t allow_smem() {
   return cudaFuncSetAttribute(swa_partial<T, kCopy>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              partial_smem(kMaxSplit, kMaxD, kMaxRep,
+                              partial_smem(kMaxSplit, kMaxD, kHeadGroup,
                                            (int)sizeof(T)));
 }
 
@@ -471,8 +494,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* valid_len,
            int B, int H, int S, int KV, int D, int split, float scale,
            float softcap, void* scratch, void* out, cudaStream_t stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV || H / KV > kMaxRep || D > kMaxD ||
-      D < 4 || D % 4 || !split_ok(split))
+  if (B < 1 || S < 1 || KV < 1 || H < 1 || H % KV || D > kMaxD || D < 4 ||
+      D % 4 || !split_ok(split))
     return (int)cudaErrorInvalidValue;
   const int np = pieces_for(S, split), rep = H / KV;
   float* pacc = (float*)scratch;
@@ -512,7 +535,9 @@ using namespace swa;
 extern "C" {
 
 // Lets the partial kernels take their largest piece (about 150 KB of
-// dynamic shared memory); called once per process, before any launch.
+// dynamic shared memory) on the current device: CUDA keeps the attribute
+// per device, so the caller runs this once on each device before its first
+// launch there.
 int swa_init(void) {
   cudaError_t e = allow_smem<float, 16>();
   if (e == cudaSuccess) e = allow_smem<float, 8>();
@@ -526,7 +551,7 @@ int64_t swa_scratch_floats(int B, int H, int S, int D, int split) {
   return (int64_t)B * H * pieces_for(S, split) * (D + 2);
 }
 
-int swa_max_rep(void) { return kMaxRep; }
+int swa_head_group(void) { return kHeadGroup; }
 int swa_max_d(void) { return kMaxD; }
 int swa_min_split(void) { return kMinSplit; }
 int swa_max_split(void) { return kMaxSplit; }

@@ -51,8 +51,9 @@ def swa_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and bind ``csrc/swa_attn.cu``, and let its
-    partial kernels take their largest piece of shared memory."""
+    """Build (at first use) and bind ``csrc/swa_attn.cu``; :func:`_ready`
+    lets its partial kernels take their largest piece of shared memory on
+    each device at its first launch there."""
     lib = build.load(SOURCE)
     for name in ("swa_decode_f32", "swa_decode_bf16"):
         fn = getattr(lib, name)
@@ -61,25 +62,35 @@ def load_library() -> ctypes.CDLL:
         fn.restype = _INT
     lib.swa_scratch_floats.argtypes = [_INT, _INT, _INT, _INT, _INT]
     lib.swa_scratch_floats.restype = ctypes.c_int64
-    for name in ("swa_init", "swa_max_rep", "swa_max_d", "swa_min_split",
+    for name in ("swa_init", "swa_head_group", "swa_max_d", "swa_min_split",
                  "swa_max_split"):
         getattr(lib, name).restype = _INT
     lib.swa_error_string.argtypes = [_INT]
     lib.swa_error_string.restype = ctypes.c_char_p
-    if ((lib.swa_max_rep(), lib.swa_max_d(), lib.swa_min_split(),
-         lib.swa_max_split()) != (MAX_REP, MAX_D, MIN_SPLIT, MAX_SPLIT)):
+    if ((lib.swa_head_group(), lib.swa_max_d(), lib.swa_min_split(),
+         lib.swa_max_split()) != (HEAD_GROUP, MAX_D, MIN_SPLIT, MAX_SPLIT)):
         raise RuntimeError("swa_attn.cu and the limits of swa_attn.py "
                            "disagree")
-    err = lib.swa_init()
-    if err:
-        raise RuntimeError("swa_init failed: "
-                           f"{lib.swa_error_string(err).decode()}")
     return lib
 
 
-#: what the kernel takes: at most 16 query heads per kv head, a head dim of
-#: at most 256 that is a multiple of 4 (``kMaxRep``, ``kMaxD`` in the source)
-MAX_REP, MAX_D = 16, 256
+@functools.lru_cache(maxsize=None)
+def _ready(device: torch.device, lib: ctypes.CDLL) -> None:
+    """Let the partial kernels take their shared memory on ``device``: CUDA
+    keeps the attribute per device, so it is set at the first launch on each
+    one."""
+    with torch.cuda.device(device):
+        err = lib.swa_init()
+    if err:
+        raise RuntimeError(f"swa_init failed on {device}: "
+                           f"{lib.swa_error_string(err).decode()}")
+
+
+#: what the kernel takes: any number of query heads per kv head, scored
+#: ``HEAD_GROUP`` at a time over a piece held in shared memory, and a head
+#: dim of at most 256 that is a multiple of 4 (``kHeadGroup``, ``kMaxD`` in
+#: the source)
+HEAD_GROUP, MAX_D = 16, 256
 #: cache slots per block: a power of two from ``kMinSplit`` to ``kMaxSplit``
 MIN_SPLIT, MAX_SPLIT = 8, 64
 
@@ -119,9 +130,12 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     past ``valid_len`` exits before it copies anything; the others request
     every byte they use (the queries and the piece's valid K and V rows)
     into shared memory with ``cp.async`` before any arithmetic, then score
-    their slots for all H / KV query heads that share them as register
-    tiles of 4 slots x 4 heads, take the softmax with 16 lanes per head,
-    and sum P.V with one thread per (columns, four heads). A second launch,
+    their slots for the H / KV query heads that share them, ``HEAD_GROUP``
+    heads at a time while the piece stays in shared memory (so K and V are
+    read once per piece whatever H / KV is: granite-34b's 48 heads on one kv
+    head take three groups), as register tiles of 4 slots x 4 heads, take
+    the softmax with 16 lanes per head, and sum P.V with one thread per
+    (columns, four heads). A second launch,
     started early as a programmatic dependent, merges the live pieces'
     softmax partials in a fixed order (no atomics, the same bits on every
     call). S need not be a multiple of anything: the last piece is short.
@@ -143,11 +157,11 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{h} query heads do not share {kv} kv heads evenly")
     if dev.type == "cpu":
         return swa_decode_plain(q, k_cache, v_cache, valid_len, softcap)
-    if h // kv > MAX_REP or d > MAX_D or d % 4:
-        raise ValueError(f"the kernel takes H / KV <= {MAX_REP} and a head "
-                         f"dim <= {MAX_D} that is a multiple of 4; got "
-                         f"{h // kv} and {d}")
+    if d > MAX_D or d % 4:
+        raise ValueError(f"the kernel takes a head dim <= {MAX_D} that is a "
+                         f"multiple of 4; got {d}")
     lib = load_library()
+    _ready(dev, lib)
     split = piece_slots(s, b * kv, build.sm_count(dev))
     scratch = torch.empty(lib.swa_scratch_floats(b, h, s, d, split),
                           dtype=torch.float32, device=dev)

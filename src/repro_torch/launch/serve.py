@@ -8,7 +8,10 @@ tokens decode one at a time (greedy). On CUDA every RG-LRU layer's prefill
 runs the hand-written scan kernel, every SSD layer's prefill the SSD chunked
 scan kernel, and every attention layer's decode step the ring-buffer decode
 kernel. The recurrent (RG-LRU, SSD) states and conv windows pass from the
-prefill to the decode caches as they are.
+prefill to the decode caches as they are. A multi-codebook audio model
+(musicgen-large) takes a (B, Q, S) prompt and decodes Q tokens per step;
+a mixture-of-experts model serves its MLPs in the config's form (gshard at
+full size, dense when reduced, as the reference sets them).
 
 An SSD model (mamba2-1.3b) scans its prompt in chunks of
 ``cfg.ssm.chunk_size`` (256; 32 reduced): a prompt longer than the chunk must
@@ -71,8 +74,8 @@ def _prefill_into_decode_cache(cfg, caches, prompt_len, window, cache_len):
 
 @dataclasses.dataclass
 class Generation:
-    tokens: torch.Tensor          # (B, gen_len) int64
-    logits: List[torch.Tensor]    # per step (B, V), when kept
+    tokens: torch.Tensor          # (B, gen_len), (B, gen_len * Q) audio
+    logits: List[torch.Tensor]    # per step (B, V) or (B, Q, V), if kept
     prefill_s: float              # host seconds, ending in a device wait
     decode_s: float
 
@@ -85,13 +88,18 @@ def _sync(device: torch.device) -> None:
 def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
              feed: Optional[torch.Tensor] = None,
              keep_logits: bool = False) -> Generation:
-    """Prefill ``prompt`` (B, S) and decode ``gen_len`` tokens greedily:
-    the prefill's last logits give the first token, and each of the
-    ``gen_len - 1`` decode steps the next. With ``feed`` (B, gen_len) the
-    decode steps take ``feed``'s tokens instead of their own (teacher
-    forcing); the returned tokens are still the argmaxes."""
+    """Prefill ``prompt`` (B, S), or (B, Q, S) for multi-codebook audio,
+    and decode ``gen_len`` tokens greedily: the prefill's last logits give
+    the first token, and each of the ``gen_len - 1`` decode steps the next.
+    The tokens come back as the reference's serve returns them, (B,
+    gen_len), or (B, gen_len * Q) for audio: step by step, each step's Q
+    codebooks together. With ``feed`` in that layout the decode steps take
+    ``feed``'s tokens instead of their own (teacher forcing); the returned
+    tokens are still the argmaxes."""
     device = prompt.device
-    batch, prompt_len = prompt.shape
+    batch, prompt_len = prompt.shape[0], prompt.shape[-1]
+    if feed is not None:
+        feed = feed.reshape(batch, gen_len, -1)          # (B, gen_len, Q|1)
     cache_len = prompt_len + gen_len
     window = cfg.sliding_window
     t0 = time.perf_counter()
@@ -103,14 +111,16 @@ def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
     cache = _prefill_into_decode_cache(cfg, caches, prompt_len, window,
                                        cache_len)
     del caches
-    tok = torch.argmax(logits, dim=-1)                  # (B, 1)
+    tok = torch.argmax(logits, dim=-1)          # (B, 1), (B, 1, Q) audio
     _sync(device)
     t_prefill = time.perf_counter() - t0
     kept = [logits[:, -1]] if keep_logits else []
     generated = [tok]
     t0 = time.perf_counter()
     for step in range(gen_len - 1):
-        tok_in = tok if feed is None else feed[:, step:step + 1]
+        if feed is not None:
+            tok = feed[:, step].reshape(tok.shape)
+        tok_in = tok.transpose(1, 2) if tok.dim() == 3 else tok  # (B, Q, 1)
         logits, cache = M.decode_step(params, cache, tok_in,
                                       prompt_len + step, cfg, window=window)
         tok = torch.argmax(logits, dim=-1)
@@ -119,13 +129,14 @@ def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
             kept.append(logits[:, -1])
     _sync(device)
     t_decode = time.perf_counter() - t0
-    return Generation(torch.cat(generated, dim=-1), kept, t_prefill,
-                      t_decode)
+    tokens = torch.cat([t.reshape(batch, -1) for t in generated], dim=-1)
+    return Generation(tokens, kept, t_prefill, t_decode)
 
 
 def serve_config(arch: str, reduced: bool = True):
     """The configuration :func:`serve` runs, as the JAX package's serve
-    sets it: the arch, reduced by default (MoE dense), in f32."""
+    sets it: the arch, reduced by default (MoE dense), else as configured
+    (MoE gshard), in f32."""
     cfg = configs.get_arch(arch)
     if reduced:
         cfg = configs.reduced(cfg)
@@ -137,10 +148,12 @@ def serve_config(arch: str, reduced: bool = True):
 
 def make_prompt(cfg, batch: int, prompt_len: int, seed: int,
                 device: torch.device) -> torch.Tensor:
-    """The JAX package's serve prompt: numpy's default_rng(seed) token ids."""
+    """The JAX package's serve prompt: numpy's default_rng(seed) token ids,
+    (B, S), or (B, Q, S) for multi-codebook audio."""
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (batch, prompt_len)),
+    shape = ((batch, cfg.num_codebooks, prompt_len) if cfg.family == "audio"
+             else (batch, prompt_len))
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
                            dtype=torch.int64, device=device)
 
 
@@ -148,7 +161,7 @@ def serve(arch: str, batch: int = 2, prompt_len: int = 32, gen_len: int = 16,
           seed: int = 0, reduced: bool = True, verbose: bool = True, *,
           params=None, device: Device = None) -> torch.Tensor:
     """Generate ``gen_len`` tokens for a random prompt; returns the tokens
-    (B, gen_len). ``params`` is a tree of tensors to start from (moved to
+    (B, gen_len), or (B, gen_len * Q) for audio. ``params`` is a tree of tensors to start from (moved to
     ``device``), else the model is drawn from ``seed``. ``device`` defaults
     to CUDA and raises without it; pass ``device="cpu"`` for the CPU."""
     device = resolve_device(device)

@@ -9,8 +9,10 @@ its weights carry across as they are. Decode attention goes through the
 hand-written kernel of ``repro_torch.kernels.swa_attn`` on CUDA; the dense
 products stay plain ``torch`` ops, as the JAX package leaves them to XLA.
 
-The audio (multi-codebook) and vision front ends are not ported: they raise
-``NotImplementedError`` naming ROADMAP.md A18b.
+The front ends are the reference's stubs: an audio model (MusicGen) sums one
+embedding per EnCodec codebook and has one output head per codebook; a
+vision-language model (Qwen2-VL) projects precomputed patch embeddings over
+the first positions of the sequence.
 """
 from __future__ import annotations
 
@@ -304,37 +306,68 @@ def mlp_fwd(p, x: torch.Tensor, activation: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _text_only(cfg: ModelConfig) -> None:
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family} front end of {cfg.arch_id} is not ported yet "
-            "(ROADMAP.md A18b)")
+def _multi_codebook(cfg: ModelConfig) -> bool:
+    return cfg.family == "audio" and cfg.num_codebooks > 1
 
 
 def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    _text_only(cfg)
-    return {"tok": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+    defs = {"tok": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                             scale=1.0)}
+    if _multi_codebook(cfg):
+        defs["tok_extra"] = ParamDef(
+            (cfg.num_codebooks - 1, cfg.vocab_size, cfg.d_model),
+            (None, "vocab", "embed"), scale=1.0)
+    if cfg.family == "vlm" and cfg.vision_embed_dim:
+        defs["vision_proj"] = ParamDef(
+            (cfg.vision_embed_dim, cfg.d_model), (None, "embed"))
+    return defs
 
 
 def head_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    _text_only(cfg)
-    if cfg.tie_embeddings:
-        return {}
-    return {"out": ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))}
+    defs = {}
+    if not cfg.tie_embeddings:
+        defs["out"] = ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    if _multi_codebook(cfg):
+        defs["out_extra"] = ParamDef(
+            (cfg.num_codebooks - 1, cfg.d_model, cfg.vocab_size),
+            (None, "embed", "vocab"))
+    return defs
 
 
-def embed_fwd(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens: (B, S) integer ids -> (B, S, d_model) in the config's dtype."""
-    _text_only(cfg)
-    return p["tok"][tokens].to(torch_dtype(cfg.dtype))
+def embed_fwd(p, tokens: torch.Tensor, cfg: ModelConfig,
+              patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens: (B, S) integer ids, or (B, Q, S) for multi-codebook audio
+    (the codebooks' embeddings summed: ``tok`` first, then ``tok_extra[0]``
+    .. ``tok_extra[Q - 2]``) -> (B, S, d_model) in the config's dtype.
+    ``patch_embeds`` (B, P, E), for a vlm config, are projected to d_model
+    and written over positions 0 .. P - 1."""
+    dt = torch_dtype(cfg.dtype)
+    if _multi_codebook(cfg):
+        x = p["tok"][tokens[:, 0]]
+        for q in range(cfg.num_codebooks - 1):
+            x = x + p["tok_extra"][q][tokens[:, q + 1]]
+    else:
+        x = p["tok"][tokens]
+    x = x.to(dt)
+    if patch_embeds is not None and "vision_proj" in p:
+        proj = torch.einsum("bpe,ed->bpd", patch_embeds.to(dt),
+                            p["vision_proj"].to(dt))
+        x = torch.cat([proj, x[:, proj.shape[1]:]], dim=1)
+    return x
 
 
 def head_fwd(p_head, p_embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, d_model) -> logits (B, S, V), or (B, S, Q, V) for
+    multi-codebook audio with the main head's logits first."""
     dt = x.dtype
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, p_embed["tok"].to(dt))
-    return torch.einsum("bsd,dv->bsv", x, p_head["out"].to(dt))
+        logits = torch.einsum("bsd,vd->bsv", x, p_embed["tok"].to(dt))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, p_head["out"].to(dt))
+    if _multi_codebook(cfg):
+        extra = torch.einsum("bsd,qdv->bsqv", x, p_head["out_extra"].to(dt))
+        logits = torch.cat([logits[:, :, None, :], extra], dim=2)
+    return logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -8,16 +8,17 @@ plain copy (``repro_torch.convert.params_from_numpy``). Where the reference
 runs ``jax.lax.scan`` over the groups, this module loops over the group
 index in Python.
 
-It has the attention and RG-LRU blocks with dense MLPs (the
-recurrentgemma-2b and h2o-danube-1.8b configurations) and the Mamba-2 SSD
-block, a norm and the SSD mixer with no MLP (mamba2-1.3b). Mixture-of-experts
-MLPs (ROADMAP.md A18b) raise ``NotImplementedError``.
+It has the attention block with a dense or a mixture-of-experts MLP
+(``models.moe``), the RG-LRU block with a dense MLP, and the Mamba-2 SSD
+block, a norm and the SSD mixer with no MLP: every block of the ten
+assigned configurations. A block returns its MoE router's aux loss, and the
+forward sums them over the layers.
 
 Public entry points:
   model_defs(cfg)                  -> ParamDef tree
   init_model(gen, cfg)             -> materialized params on gen's device
   forward(params, tokens, cfg, ...) -> logits, aux, caches|None (training,
-                                      prefill)
+                                      prefill; vlm patch_embeds)
   cache_specs(cfg, batch, len, window) -> decode-cache shapes and dtypes
   init_cache(cfg, batch, len, window, device) -> zeroed decode caches
   decode_step(params, cache, tokens, index, cfg) -> logits, new cache
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import init_params, stack_defs, torch_dtype
@@ -44,19 +46,17 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 
 
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in ("attn", "rglru", "ssd"):
         raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "mixture-of-experts MLPs are not ported yet (ROADMAP.md A18b)")
 
 
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, PyTree]:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     if kind == "attn":
+        ffn = MOE.moe_defs(cfg) if cfg.moe is not None else L.mlp_defs(cfg)
         return {"norm1": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
-                "norm2": L.norm_defs(cfg), "ffn": L.mlp_defs(cfg)}
+                "norm2": L.norm_defs(cfg), "ffn": ffn}
     if kind == "ssd":
         return {"norm1": L.norm_defs(cfg), "ssd": SSM.ssd_defs(cfg)}
     return {"norm1": L.norm_defs(cfg), "rglru": RG.rglru_defs(cfg),
@@ -67,14 +67,16 @@ def block_fwd(p, x: torch.Tensor, positions, cfg: ModelConfig, kind: str, *,
               window: int, cache=None, cache_index=None,
               q_chunk: int = 1024, kv_chunk: int = 1024,
               skip_masked_blocks: bool = True, attn_mode: str = "auto"):
-    """One residual block. Returns (y, new_cache, aux_loss)."""
-    _check_kind(cfg, kind)
+    """One residual block. Returns (y, new_cache, aux_loss), the aux loss
+    an f32 scalar tensor: the MoE router's, zero for the other blocks."""
+    _check_kind(kind)
+    aux = x.new_zeros((), dtype=torch.float32)
     h = L.norm_fwd(p["norm1"], x, cfg.norm)
     if kind == "ssd":
         ssm_state, conv = cache if cache is not None else (None, None)
         h, new_cache = SSM.ssd_block_fwd(p["ssd"], h, cfg,
                                          ssm_state=ssm_state, conv_state=conv)
-        return x + h, new_cache, 0.0
+        return x + h, new_cache, aux
     if kind == "attn":
         h, new_cache = L.attention_fwd(
             p["attn"], h, positions, cfg, window=window,
@@ -87,8 +89,11 @@ def block_fwd(p, x: torch.Tensor, positions, cfg: ModelConfig, kind: str, *,
                                           rec_state=rec, conv_state=conv)
     x = x + h
     h = L.norm_fwd(p["norm2"], x, cfg.norm)
-    h = L.mlp_fwd(p["ffn"], h, cfg.activation)
-    return x + h, new_cache, 0.0
+    if kind == "attn" and cfg.moe is not None:
+        h, aux = MOE.moe_fwd(p["ffn"], h, cfg)
+    else:
+        h = L.mlp_fwd(p["ffn"], h, cfg.activation)
+    return x + h, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +155,7 @@ class TensorSpec:
 def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
                       cache_len: int) -> PyTree:
     """Specs of one block's decode cache."""
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     dt = torch_dtype(cfg.dtype)
     if kind == "attn":
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
@@ -203,11 +208,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, window: int,
 
 
 def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
+            patch_embeds: Optional[torch.Tensor] = None,
             window: int = 0, collect_cache: bool = False,
             remat: bool = True, q_chunk: int = 1024, kv_chunk: int = 1024,
             skip_masked_blocks: bool = True, attn_mode: str = "auto",
             logits_slice: Optional[int] = None):
     """Full-sequence forward. Returns (logits, aux_loss, caches|None).
+
+    tokens: (B, S), or (B, Q, S) for multi-codebook audio (logits then
+    (B, S, Q, V)); patch_embeds: (B, P, E) for a vlm config, projected over
+    positions 0 .. P - 1 (they take the text positions, as in the
+    reference). aux_loss: the MoE routers' aux losses summed over the
+    groups, then the tail layers, in f32.
 
     window: 0 -> cfg.sliding_window (natively windowed archs) else full attn.
     collect_cache: also return per-layer (k, v) / states for decode handoff.
@@ -225,33 +237,39 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
     del remat
     pat, n_groups, tail = _grouping(cfg)
     window = window or cfg.sliding_window
-    x = L.embed_fwd(params["embed"], tokens, cfg)
+    x = L.embed_fwd(params["embed"], tokens, cfg, patch_embeds=patch_embeds)
     bsz, seq = x.shape[0], x.shape[1]
     positions = torch.arange(seq, device=x.device)[None].expand(bsz, seq)
     kw = dict(window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
               skip_masked_blocks=skip_masked_blocks, attn_mode=attn_mode)
 
+    aux = x.new_zeros((), dtype=torch.float32)
     caches: Dict[str, PyTree] = {}
-    group_caches = []
+    group_caches, group_aux = [], []
     for g in range(n_groups):
         gp = _group(params["layers"], g)
         gc = {}
+        ga = x.new_zeros((), dtype=torch.float32)
         for i, k in enumerate(pat):
             name = f"b{i}_{k}"
-            x, gc[name], _ = block_fwd(gp[name], x, positions, cfg, k, **kw)
+            x, gc[name], a = block_fwd(gp[name], x, positions, cfg, k, **kw)
+            ga = ga + a
         group_caches.append(gc)
-    if n_groups and collect_cache:
-        caches["layers"] = _stack(group_caches)
+        group_aux.append(ga)
+    if n_groups:
+        aux = aux + torch.sum(torch.stack(group_aux))
+        if collect_cache:
+            caches["layers"] = _stack(group_caches)
     for j, k in enumerate(tail):
         name = f"tail{j}_{k}"
-        x, c, _ = block_fwd(params[name], x, positions, cfg, k, **kw)
+        x, c, a = block_fwd(params[name], x, positions, cfg, k, **kw)
+        aux = aux + a
         if collect_cache:
             caches[name] = c
     x = L.norm_fwd(params["final_norm"], x, cfg.norm)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
     logits = L.head_fwd(params["head"], params["embed"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (caches if collect_cache else None)
 
 
@@ -262,8 +280,8 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def decode_step(params: PyTree, cache: PyTree, tokens: torch.Tensor,
                 cache_index: int, cfg: ModelConfig, *, window: int = 0):
-    """tokens: (B, 1). Returns (logits, new_cache); the cache given is left
-    as it was."""
+    """tokens: (B, 1), or (B, Q, 1) for multi-codebook audio. Returns
+    (logits, new_cache); the cache given is left as it was."""
     pat, n_groups, tail = _grouping(cfg)
     window = window or cfg.sliding_window
     x = L.embed_fwd(params["embed"], tokens, cfg)

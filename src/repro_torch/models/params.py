@@ -67,8 +67,10 @@ def _init_leaf(gen: torch.Generator, d: ParamDef,
             0.9, 0.999, generator=gen)
         return torch.log(u / (1.0 - u)).to(dtype)
     if d.init == "normal":
-        return (torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                            device=dev) * d.scale).to(dtype)
+        # scaled in place: no second temporary of the leaf's size (the
+        # stacked expert weights of qwen2-moe-a2.7b are 16.6 GB each)
+        return torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(d.scale).to(dtype)
     raise ValueError(d.init)
 
 

@@ -132,16 +132,23 @@ def test_rglru_stream_edges(shape, dtype, with_h0):
                                    (1, 1, 16, 1, 4, 0.0),
                                    (2, 5, 16, 1, 128, 0.0),
                                    (3, 300, 16, 1, 256, 0.0),
-                                   (2, 130, 4, 1, 68, 5.0)])
+                                   (2, 130, 4, 1, 68, 5.0),
+                                   (4, 48, 48, 1, 128, 0.0),
+                                   (2, 300, 48, 1, 128, 0.0),
+                                   (2, 100, 48, 2, 64, 30.0),
+                                   (2, 77, 17, 1, 256, 0.0),
+                                   (3, 40, 32, 4, 128, 0.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_swa_matches_plain(shape, dtype):
     """The serve shapes (2048 and 48 slots), a GQA map with a softcap, D of
-    4, 64, 68, 80, 128 and 256, H / KV up to 16, a cache shorter than one
-    piece and one that no piece divides; valid lengths of S, 0, 1, exactly
-    one piece, one past a piece and a ragged set. In bf16, D = 4 and 68
-    take the 8-byte copies (rows not a multiple of 16 bytes), the others
-    the 16-byte ones."""
+    4, 64, 68, 80, 128 and 256, H / KV from 1 to 48 (granite-34b's MQA:
+    three groups of 16 heads over one piece; 24 and 17: a last group of 8
+    and of 1; qwen3-moe-30b-a3b's 32 on 4), a cache shorter than one piece
+    and one that no piece divides; valid lengths of S, 0, 1, exactly one
+    piece, one past a piece and a ragged set. In bf16, D = 4 and 68 take
+    the 8-byte copies (rows not a multiple of 16 bytes), the others the
+    16-byte ones."""
     b, s, h, kv, d, cap = shape
     g = gen(s)
     q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
@@ -167,13 +174,47 @@ def test_swa_matches_plain(shape, dtype):
 
 @requires_cuda
 def test_swa_rejects_what_the_kernel_does_not_take():
+    """Any number of query heads per kv head is taken (17 on 1); a head dim
+    that is not a multiple of 4 is not."""
     q = torch.zeros(1, 17, 8, device="cuda")
     k = torch.zeros(1, 4, 1, 8, device="cuda")
     vl = torch.ones(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="H / KV"):
-        swa_attn.swa_decode_attention(q, k, k, vl)
+    torch.testing.assert_close(swa_attn.swa_decode_attention(q, k, k, vl),
+                               swa_attn.swa_decode_plain(q, k, k, vl))
+    with pytest.raises(ValueError, match="head dim"):
+        swa_attn.swa_decode_attention(q[..., :6].contiguous(),
+                                      k[..., :6].contiguous(),
+                                      k[..., :6].contiguous(), vl)
     with pytest.raises(ValueError, match="on cpu"):
         swa_ops.decode_attention(q[:, None], k.cpu(), k, 1)
+
+
+@pytest.mark.skipif("torch.cuda.device_count() < 2",
+                    reason="needs two or more CUDA cards")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_on_every_card(dtype):
+    """The partial kernels' shared-memory attribute is per device: a decode
+    whose pieces take more than the default 48 KB (64-slot pieces of
+    D = 256) launches on every card, not only on the one that loaded the
+    library, and gives the first card's bits."""
+    outs = []
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(5)
+        q = torch.randn(1, 10, 256, device=dev, generator=g).to(dtype)
+        k = torch.randn(1, 2048, 1, 256, device=dev, generator=g).to(dtype)
+        v = torch.randn(1, 2048, 1, 256, device=dev, generator=g).to(dtype)
+        vl = torch.full((1,), 2048, dtype=torch.int32, device=dev)
+        assert swa_attn.piece_slots(2048, 1, build.sm_count(dev)) == 64
+        with torch.cuda.device(dev):
+            out = swa_attn.swa_decode_attention(q, k, v, vl)
+        ref = swa_attn.swa_decode_plain(q, k, v, vl)
+        tol = 1e-5 if dtype == torch.float32 else 8e-3
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+        outs.append(out.cpu())
+    assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 def ssd_inputs(bs, s, h, p, g, n, seed, h0=False, dt_scale=1.0):

@@ -252,27 +252,26 @@ def test_mlp_gelu_is_the_tanh_form(activation):
     close(got, want, rtol=1e-5, atol=1e-5)
 
 
-#: configurations of later slices and the ROADMAP item each raise names
-LATER = {"qwen2-moe-a2.7b": "A18", "musicgen-large": "A18",
-         "qwen2-vl-72b": "A18"}
-#: configurations that raised before their slice was ported
+#: the configurations that raised naming ROADMAP.md A18 before their slice
+#: was ported (MoE, audio, vlm), and the first one ported after raising
+LATER = ("qwen2-moe-a2.7b", "musicgen-large", "qwen2-vl-72b")
 PORTED = ("mamba2-1.3b",)
 
 
-@pytest.mark.parametrize("arch", sorted([*LATER, *PORTED]))
+@pytest.mark.parametrize("arch", sorted(C.ARCHS.names()))
 def test_later_families_raise(arch):
-    """MoE, audio and vlm configurations raise naming their ROADMAP item
-    when the model is declared; a ported one (mamba2-1.3b, the SSD block)
-    declares the reference's tree instead."""
-    jcfg = C.reduced(C.get_arch(arch))
+    """Every registered configuration, the MoE, audio and vlm ones that
+    raised before the last architecture slice (``LATER``) included, now
+    declares the reference's tree at its full size: names, shapes, the
+    parameter count and the analytic count."""
+    jcfg = C.get_arch(arch)
     tcfg = TC.ModelConfig(**{f.name: getattr(jcfg, f.name)
                              for f in dataclasses.fields(jcfg)})
-    if arch in PORTED:
-        assert (tdef_paths(TM.model_defs(tcfg))
-                == jdef_paths(JM.model_defs(jcfg)))
-        return
-    with pytest.raises(NotImplementedError, match=LATER[arch]):
-        TM.model_defs(tcfg)
+    jdefs, tdefs = JM.model_defs(jcfg), TM.model_defs(tcfg)
+    assert tdef_paths(tdefs) == jdef_paths(jdefs)
+    assert TP.count_params(tdefs) == jcount(jdefs)
+    assert tcfg.param_count() == jcfg.param_count()
+    assert set(LATER + PORTED) <= set(C.ARCHS.names())
 
 
 def test_ssd_cache_specs_equal():

@@ -117,16 +117,26 @@ class TestCoercion:
             tasks.as_task(42)
 
     def test_unbuilt_architectures_name_a18b(self):
+        """The architectures that raised naming A18b before the last
+        architecture slice are built now, as the reference builds them
+        (reduced, MoE dense), and so is an unregistered MoE config; an
+        unregistered id raises the registry's KeyError, as the reference's
+        ``ARCHS[...]`` does."""
         moe = dataclasses.replace(
             TC.get_arch("h2o-danube-1.8b"), arch_id="danube-moe",
             family="moe", moe=MoEConfig(num_experts=4, num_experts_per_tok=2,
                                         expert_d_ff=64))
-        with pytest.raises(NotImplementedError, match="A18b"):
-            tasks.as_task(moe)
-        for arch in ("qwen3-moe-30b-a3b", "musicgen-large", "qwen2-vl-72b"):
-            assert arch in C.ARCHS
-            with pytest.raises(NotImplementedError, match="A18b"):
-                tasks.as_task(arch)
+        t = tasks.as_task(moe)
+        assert t.cfg.moe.impl == "dense" and t.cfg.dtype == "float32"
+        for arch in ("granite-34b", "phi3-medium-14b", "qwen2-moe-a2.7b",
+                     "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                     "musicgen-large", "qwen2-vl-72b"):
+            assert arch in C.ARCHS and arch in TC.ARCHS
+            same_task(tasks.as_task(arch), jtasks.as_task(arch))
+        with pytest.raises(KeyError, match="unknown architecture config"):
+            jtasks.as_task("no-such-arch")
+        with pytest.raises(KeyError, match="unknown architecture config"):
+            tasks.as_task("no-such-arch")
 
 
 class TestShapesAndEstimates:
@@ -135,7 +145,7 @@ class TestShapesAndEstimates:
                 == dataclasses.asdict(jshapes.TRAIN_4K))
         assert TC.base.SHAPES["train_4k"] is shapes.TRAIN_4K
 
-    @pytest.mark.parametrize("arch", ARCHS)
+    @pytest.mark.parametrize("arch", sorted(C.ARCHS.names()))
     @pytest.mark.parametrize("full", [False, True], ids=["reduced", "full"])
     def test_byte_estimates(self, arch, full):
         t = tasks.arch_task(arch, full_scale=full)

@@ -70,15 +70,15 @@ class TestFedConfig:
         assert (dataclasses.asdict(TC.PAPER_TASKS[name])
                 == dataclasses.asdict(C.PAPER_TASKS[name]))
 
-    @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
-                                      "h2o-danube-1.8b", "mamba2-1.3b"])
+    @pytest.mark.parametrize("arch", sorted(C.ARCHS.names()))
     def test_arch_configs_equal(self, arch):
-        """The serving slice's architectures, full and reduced."""
+        """Every assigned architecture, full and reduced."""
         assert (dataclasses.asdict(TC.get_arch(arch))
                 == dataclasses.asdict(C.get_arch(arch)))
         assert (dataclasses.asdict(TC.reduced(TC.get_arch(arch)))
                 == dataclasses.asdict(C.reduced(C.get_arch(arch))))
-        assert set(TC.ARCHS.names()) <= set(C.ARCHS.names())
+        assert TC.ARCHS.names() == C.ARCHS.names()
+        assert TC.ALL_ARCH_IDS == C.ALL_ARCH_IDS
 
     def test_scenario_configs_equal(self):
         assert TC.SCENARIOS.names() == C.SCENARIOS.names()

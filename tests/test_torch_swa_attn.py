@@ -2,7 +2,8 @@
 reference: its plain version, which the wrapper takes on the CPU, against
 the reference's oracle ``swa_decode_ref`` and its Pallas kernel in
 interpret mode (``decode_attention_pallas``), in the model's layout, for
-grouped-query head maps, f32 and bf16, ``valid_len`` masks with poisoned
+grouped-query head maps up to MQA's 48 query heads on one kv head, f32 and
+bf16, ``valid_len`` masks with poisoned
 slots, a softcap, and a cache length that no 64-slot piece divides. Inputs
 are drawn with numpy from a seed and handed to both.
 
@@ -54,9 +55,11 @@ def close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("gqa", [(8, 8), (8, 2), (4, 1)])
+@pytest.mark.parametrize("gqa", [(8, 8), (8, 2), (4, 1), (24, 1), (48, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_against_oracle_and_pallas(gqa, dtype):
+    """GQA maps up to the MQA of granite-34b (48 query heads on one kv
+    head), which the card's kernel scores 16 heads at a time."""
     h, kv = gqa
     b, s, d = 2, 256, 64
     q, kc, vc = inputs(b, s, h, kv, d, dtype)
