@@ -65,9 +65,22 @@ also the share of router choices the devices share and the smallest
 top-k gaps; for qwen2-vl-72b a forward with patch embeddings), and one
 reduced model of each new family trains federated on the loop and cohort
 engines through the flat server on the card and on the CPU
-(``family_train``). ``fedagg_fused``, which no path of
-either package calls, is held to the bit against ``fedagg_axpy`` and
-``fedagg_norms``. The line of its
+(``family_train``). Last the step programs of ``launch/steps.py`` run at
+the four assigned shapes with the registered dtypes (``steps``):
+prefill_32k's 32,768 tokens (batch 1) through mamba2-1.3b and
+recurrentgemma-2b at full depth (the next token against ``forward``'s
+argmax); one serve step at decode_32k (batch 128; recurrentgemma-2b and
+h2o-danube-1.8b at full depth, granite-34b's full 32,768-slot cache at 8
+layers) and at long_500k (batch 1; h2o-danube-1.8b, mamba2-1.3b); three
+AdamW steps of train_4k's 4096 tokens (batch 1) for mamba2-1.3b and
+h2o-danube-1.8b at full depth, recurrentgemma-2b at 3 and qwen3-moe-
+30b-a3b at 2 layers, each held to the dry run's meta trace (the card's
+FlopCounterMode count plus its kernels' plain-version counts, and the
+argument bytes), mamba2's remat against no remat to the bit; the card
+against the CPU port in f32 for a train step, a prefill and a decode step;
+and the three scan and decode kernels at the new shapes.
+``fedagg_fused``, which no path of either package calls, is held to the
+bit against ``fedagg_axpy`` and ``fedagg_norms``. The line of its
 standard output before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
 them, the last line is ``{"ok": true, "device": {...}}``, and every other
@@ -105,10 +118,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM data sheet: device memory rate and f32 rate outside the
-#: tensor cores (both at the 700 W power limit)
+#: H100 SXM data sheet: device memory rate, f32 rate outside the tensor
+#: cores and dense bf16 tensor-core rate (all at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 #: flat lengths on the main path (the paper tasks' padded n) and one large
 #: length for the bandwidth figure (the flat state of a ~270M-param model)
@@ -354,6 +368,58 @@ VLM_PATCHES = 16
 #: the same runs on the CPU: (arch, updates)
 FAMILY_TRAIN = [("qwen2-moe-a2.7b", 8), ("musicgen-large", 8),
                 ("qwen2-vl-72b", 8)]
+#: the ``steps`` phase: the step programs of ``launch/steps.py`` at full
+#: width with the registered dtypes (bf16 activations, f32 params). Train:
+#: train_4k's 4096 tokens with its batch of 256 cut to 1, three AdamW steps
+#: on one seeded batch, (arch, layers run or None for full depth)
+STEP_TRAIN = [("mamba2-1.3b", None), ("recurrentgemma-2b", 3),
+              ("qwen3-moe-30b-a3b", 2), ("h2o-danube-1.8b", None)]
+STEP_TRAIN_BATCH = 1
+STEP_TRAIN_STEPS = 3
+#: prefill_32k's 32,768 tokens with its batch of 32 cut to 1, full depth
+STEP_PREFILL = ["mamba2-1.3b", "recurrentgemma-2b"]
+STEP_PREFILL_BATCH = 1
+#: one serve step (then two timed) against a seeded cache at index
+#: seq_len - 1, the ring full: (shape, arch, layers or None, batch)
+STEP_DECODE = [("decode_32k", "recurrentgemma-2b", None, 128),
+               ("decode_32k", "h2o-danube-1.8b", None, 128),
+               ("decode_32k", "granite-34b", 8, 128),
+               ("long_500k", "h2o-danube-1.8b", None, 1),
+               ("long_500k", "mamba2-1.3b", None, 1)]
+STEP_DECODE_TIMED = 2
+#: card against the CPU port in f32 at full width, one group: arch ->
+#: layers; a train step of 256 tokens x 1, a prefill of 2048, a decode step
+#: at batch 4; rtol 1e-4 (loss; the gradient tree to its largest element,
+#: each leaf's update to its largest; logits to the largest |logit|)
+STEP_PARITY = {"mamba2-1.3b": 2, "recurrentgemma-2b": 3}
+STEP_PARITY_TOL = 1e-4
+#: each gradient leaf against its own largest element (the worst sound
+#: leaf, mamba2's a_log, reads 1.3e-4: a sum over all 256 positions of a
+#: 64-element leaf)
+STEP_LEAF_GRAD_TOL = 1e-3
+#: AdamW's eps (``launch/steps.py::default_optimizer``): an element's
+#: update is compared where |g| > 100 eps (the first step within 1% of
+#: sign-like) and |g| > 100 times the gradient tree's largest gap
+STEP_ADAM_EPS = 1e-8
+#: swa_decode_attention at the three decode_32k shapes of the path (bf16):
+#: (B, S, H, KV, D); ssd_scan and rglru_scan at the 32,768-token prefill
+STEP_SWA_SHAPES = [(128, 2048, 10, 1, 256), (128, 4096, 32, 8, 80),
+                   (128, 32768, 48, 1, 128)]
+STEP_SSD_SHAPE = (1, 32768, 64, 64, 1, 128, 256, False)
+STEP_RGLRU_SHAPE = (1, 32768, 2560)
+#: bf16 outputs of the decode kernel at the decode_32k shapes against the
+#: plain version (both round an f32 result to bf16 once), relative to the
+#: largest |output|: the two roundings may land one bf16 ulp apart, at most 2^-7 of the largest
+#: value. With every slot of a long cache valid the outputs are small
+#: (std ~ sqrt(e / S)), so an absolute limit would let a kernel that loses
+#: part of the cache pass
+SWA_BF16_RTOL = 1e-2
+#: rglru_scan's bf16 h at the prefill shape: past the f32 gap, the two
+#: roundings may land one bf16 ulp apart, at most 2^-7 of the larger |h|
+RGLRU_BF16_REL = 8e-3
+#: bytes the decode kernel's plain version (K and V repeated to H heads in
+#: f32) or SDPA may take at once; above it they run over batch slices
+STEP_PLAIN_BYTES = 8 << 30
 
 
 def emit(obj) -> None:
@@ -453,10 +519,11 @@ def rotated_ms(fn, make, set_bytes: int) -> float:
     return device_ms(lambda: fn(*next(it)), reps=len(sets))
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S):
     """The least time the card could take: the larger of bytes over the HBM
-    rate and f32 flops over the f32 rate; and which one it is."""
-    b, f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    rate and flops over ``peak``, the rate for the operands' type (f32 by
+    default, ``BF16_FLOPS_PER_S`` for bf16 ones); and which one it is."""
+    b, f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(b, f) * 1e3, ("bytes" if b >= f else "operations")
 
 
@@ -1742,6 +1809,679 @@ def phase_family_train(torch, fedagg, launches: dict) -> None:
             check(sum(counts.values()) > 0, f"{label}: no fedagg launch")
             check(all(math.isfinite(x) for x in res["losses"]),
                   f"{label}: eval losses {res['losses']}")
+
+
+# ---------------------------------------------------------------------------
+# steps: the step programs at the assigned shapes
+# ---------------------------------------------------------------------------
+
+
+def _step_cfg(arch: str, layers=None, **changes):
+    """``arch`` as registered (bf16 activations, f32 params), its depth cut
+    to ``layers`` when given."""
+    from repro_torch import configs
+    cfg = configs.get_arch(arch)
+    if layers is not None:
+        changes["num_layers"] = layers
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def _step_shape(name: str, batch: int):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_shape(name), global_batch=batch)
+
+
+def _step_tokens(torch, cfg, shape, seed: int, device):
+    """Seeded token ids (numpy's default_rng), int32 as ``input_specs``
+    declares them."""
+    import numpy as np
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+    return torch.as_tensor(ids, dtype=torch.int32, device=device)
+
+
+def _scan_launches(kernels: dict) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _zero(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def meta_train_record(arch: str, layers, batch: int) -> dict:
+    """The dry run's record (``launch/dryrun.py::run_one``, meta tensors,
+    a 1 x 1 mesh) of train_4k for ``arch`` cut to ``layers`` and ``batch``:
+    run in a worker process, on the CPU, beside the card's runs."""
+    from repro_torch.launch import dryrun, mesh
+    rec = dryrun.run_one(
+        arch, "train_4k", False,
+        out_dir=str(ROOT / "chiprun_out" / "dryrun_torch"),
+        cfg_override=_step_cfg(arch, layers),
+        shape_override=_step_shape("train_4k", batch),
+        mesh=mesh.make_host_mesh(device="cpu"), verbose=False,
+        tag=f"L{layers or 'full'}-B{batch}")
+    rec.pop("traceback", None)
+    return rec
+
+
+def plain_flops(torch, name: str, cfg, batch: int, seq: int) -> int:
+    """FlopCounterMode's count of kernel ``name``'s plain version at one
+    launch's shapes in ``cfg``'s layer, traced on meta tensors: what the
+    meta trace counts where the card launches the kernel (FlopCounterMode
+    sees no hand-written kernel). The RG-LRU's plain version is elementwise
+    and counts 0."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.swa_attn import swa_attn
+    from repro_torch.models.ssm import ssd_dims
+    meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
+                                                        device="meta")
+    with FlopCounterMode(display=False) as fc:
+        if name == "ssd_scan":
+            _, h, p, n = ssd_dims(cfg)
+            g = cfg.ssm.ngroups
+            ssd_ops.ssd_rows_plain(
+                meta(batch, seq, h, p), meta(batch, seq, h), meta(batch * h),
+                meta(batch, seq, g, n), meta(batch, seq, g, n),
+                ssd.chunk_of(cfg.ssm.chunk_size, seq))
+        elif name == "rglru_scan":
+            w = cfg.rglru_width or cfg.d_model
+            rglru.rglru_scan_plain(meta(batch, min(seq, 8), w),
+                                   meta(batch, min(seq, 8), w))
+        else:
+            kv = meta(batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            swa_attn.swa_decode_plain(
+                meta(batch, cfg.num_heads, cfg.head_dim), kv, kv,
+                meta(batch, dt=torch.int32), cfg.attn_logit_softcap)
+    return int(fc.get_total_flops())
+
+
+def expected_step_launches(cfg, kind: str) -> dict:
+    """What one step launches: a train step the scan kernels once per scan
+    layer and once more per checkpointed (grouped) one, the recompute; a
+    prefill once per scan layer; a decode step the decode kernel once per
+    attention layer."""
+    from repro_torch.models import model as M
+    pat, n_groups, tail = M._grouping(cfg)
+    kinds = cfg.layer_kinds
+    grouped = [k for k in pat for _ in range(n_groups)]
+    if kind == "train":
+        return {"ssd_scan": kinds.count("ssd") + grouped.count("ssd"),
+                "rglru_scan": kinds.count("rglru") + grouped.count("rglru"),
+                "swa_decode_attention": 0}
+    if kind == "prefill":
+        return {"ssd_scan": kinds.count("ssd"),
+                "rglru_scan": kinds.count("rglru"),
+                "swa_decode_attention": 0}
+    return {"ssd_scan": 0, "rglru_scan": 0,
+            "swa_decode_attention": kinds.count("attn")}
+
+
+def _profiled(torch, fn):
+    """``fn()`` under torch.profiler, ending in a device wait: its result,
+    its host seconds and ``device_summary``. Device activity only: a train
+    step launches ~10^5 kernels, and host op events would double what the
+    summary reads back."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, device_summary(prof, wall)
+
+
+def _fresh(torch, label: str) -> None:
+    """Free what earlier runs left (reference cycles included) and record
+    the device memory a run starts from."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "steps_memory", "run": label,
+          "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+          "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+
+
+def _tree_bytes(pt, tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pt.tree_leaves(tree))
+
+
+def step_train_run(torch, arch: str, layers, meta, kernels: dict,
+                   launches: dict) -> dict:
+    """``STEP_TRAIN_STEPS`` AdamW steps of train_4k (batch cut to
+    ``STEP_TRAIN_BATCH``) on one seeded batch from seeded weights: step 1
+    under FlopCounterMode, step 2 timed, step 3 under torch.profiler. The
+    loss must fall; each step launches the scans as
+    :func:`expected_step_launches` says; the card's flop count plus each
+    launch's plain-version count equals the meta trace's (``meta``, a
+    future of :func:`meta_train_record`), and the params, optimizer state
+    and batch take the bytes the dry run counts on a 1 x 1 mesh. For
+    mamba2-1.3b first a step with ``remat=False`` and one with remat from
+    the same state, outside FlopCounterMode: loss, params and state equal
+    to the bit, and the memory above the resident state higher without
+    remat."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+
+    dev = torch.device("cuda:0")
+    cfg = _step_cfg(arch, layers)
+    shape = _step_shape("train_4k", STEP_TRAIN_BATCH)
+    label = f"train-{arch}"
+    _fresh(torch, label)
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = steps.default_optimizer()
+    state = opt.init(params)
+    size = (shape.global_batch, shape.seq_len)
+    batch = {"tokens": _step_tokens(torch, cfg, size, 1, dev),
+             "labels": _step_tokens(torch, cfg, size, 2, dev)}
+    arg_bytes = _tree_bytes(pt, (params, state, batch))
+    step = steps.make_train_step(cfg, opt)
+    losses, row = [], {}
+
+    def run(fn):
+        """fn() ending in a device wait: its result, host seconds, the
+        peak above the memory resident before it, the launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        _zero(kernels)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - resident,
+                _scan_launches(kernels))
+
+    if arch == "mamba2-1.3b":
+        # FlopCounterMode changes some ops' bits (seen on the CPU), so the
+        # remat comparison takes two steps outside it
+        nr = steps.make_train_step(cfg, opt, remat=False)
+        (p2, s2, m2), nr_s, nr_extra, nr_counts = run(
+            lambda: nr(params, state, batch))
+        (p3, s3, m3), r_s, r_extra, _ = run(
+            lambda: step(params, state, batch))
+        same = (torch.equal(m3["loss"], m2["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(pt.tree_leaves((p3, s3)),
+                                              pt.tree_leaves((p2, s2)))))
+        gap = max(float((a - b).abs().max())
+                  for a, b in zip(pt.tree_leaves(p3), pt.tree_leaves(p2)))
+        row["no_remat"] = {"loss": float(m2["loss"]),
+                           "remat_loss": float(m3["loss"]), "step_s": nr_s,
+                           "remat_step_s": r_s, "bitwise_equal": same,
+                           "param_max_abs_gap": gap,
+                           "extra_gib": nr_extra / 2 ** 30,
+                           "remat_extra_gib": r_extra / 2 ** 30,
+                           "launches": nr_counts}
+        del p2, s2, m2, p3, s3, m3
+        check(same, f"{label}: remat=False step differs from remat=True "
+                    f"(param gap {gap})")
+        check(nr_extra > r_extra, f"{label}: remat=False took {nr_extra} "
+              f"bytes over the resident state, remat {r_extra}")
+    with FlopCounterMode(display=False) as fc:
+        (p1, s1, m1), flop_s, remat_extra, counts1 = run(
+            lambda: step(params, state, batch))
+    card_flops = int(fc.get_total_flops())
+    losses.append(float(m1["loss"]))
+    del params, state
+    params, state = p1, s1
+    del p1, s1
+    torch.cuda.reset_peak_memory_stats()
+    (p, s, m), step_s, _, counts = run(lambda: step(params, state, batch))
+    losses.append(float(m["loss"]))
+    params, state = p, s
+    del p, s
+    _zero(kernels)
+    (p, s, m), prof_wall, summary = _profiled(
+        torch, lambda: step(params, state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    losses.append(float(m["loss"]))
+    want = expected_step_launches(cfg, "train")
+    check(counts1 == want and counts == want,
+          f"{label}: launches {counts1}, {counts}, expected {want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{label}: losses {losses}")
+    kernel_flops = {k: n * plain_flops(torch, k, cfg, shape.global_batch,
+                                       shape.seq_len)
+                    for k, n in counts1.items() if n}
+    meta_rec = meta.result()
+    check(meta_rec["ok"], f"{label}: dry run failed: {meta_rec.get('error')}")
+    check(card_flops + sum(kernel_flops.values())
+          == meta_rec["traced_flops_global"],
+          f"{label}: card flops {card_flops} + kernels {kernel_flops} != "
+          f"meta {meta_rec['traced_flops_global']}")
+    check(arg_bytes == meta_rec["memory"]["argument_bytes"],
+          f"{label}: argument bytes {arg_bytes} != dry run's "
+          f"{meta_rec['memory']['argument_bytes']}")
+    row.update({
+        "phase": "steps", "run": label, "kind": "train", "arch": arch,
+        "layers": cfg.num_layers, "full_layers": _step_cfg(arch).num_layers,
+        "params": cfg.param_count(), "seq": shape.seq_len,
+        "batch": shape.global_batch, "batch_cut_from": 256,
+        "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "moe": cfg.moe.impl if cfg.moe is not None else None,
+        "losses": losses, "step_ms": 1e3 * step_s,
+        "flop_counted_step_ms": 1e3 * flop_s,
+        "profiled_step_ms": 1e3 * prof_wall,
+        "peak_gib": peak / 2 ** 30,
+        "step1_extra_gib": remat_extra / 2 ** 30,
+        "launches_per_step": counts,
+        "card_flops": card_flops, "kernel_plain_flops": kernel_flops,
+        "meta_traced_flops": meta_rec["traced_flops_global"],
+        "meta_trace_s": meta_rec["trace_s"],
+        "argument_bytes": arg_bytes,
+        "meta_argument_bytes": meta_rec["memory"]["argument_bytes"],
+        "device_idle_share": summary["device_idle_share"],
+        "device_busy_s": summary["device_busy_s"], "top": summary["top"][:5],
+    })
+    emit(row)
+    _add(launches, counts1)
+    _add(launches, counts)
+    del params, state, p, s, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def step_prefill_run(torch, arch: str, kernels: dict, launches: dict):
+    """prefill_32k (batch cut to ``STEP_PREFILL_BATCH``) at full depth:
+    ``forward``'s last logits first (unmeasured; the reference of the next
+    token), then the prefill step timed: the scans launch once per scan
+    layer at the full 32,768 tokens, the next token is the argmax of
+    ``forward``'s last logits, the caches are finite."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+
+    dev = torch.device("cuda:0")
+    cfg = _step_cfg(arch)
+    shape = _step_shape("prefill_32k", STEP_PREFILL_BATCH)
+    label = f"prefill-{arch}"
+    _fresh(torch, label)
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = _step_tokens(torch, cfg, (shape.global_batch, shape.seq_len), 3,
+                        dev)
+    with torch.no_grad():
+        logits, _, _ = M.forward(params, toks, cfg,
+                                 window=cfg.sliding_window, remat=False,
+                                 logits_slice=1)
+    want = torch.argmax(logits, dim=-1).to(torch.int32)
+    del logits
+    step = steps.make_prefill_step(cfg, shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.perf_counter()
+    tok, caches = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = _scan_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == expected_step_launches(cfg, "prefill"),
+          f"{label}: launches {counts}")
+    check(torch.equal(tok, want), f"{label}: next token {tok.tolist()} "
+                                  f"!= forward's argmax {want.tolist()}")
+    check(all(bool(torch.isfinite(c.float()).all())
+              for c in pt.tree_leaves(caches)), f"{label}: caches")
+    row = {"phase": "steps", "run": label, "kind": "prefill", "arch": arch,
+           "layers": cfg.num_layers, "params": cfg.param_count(),
+           "seq": shape.seq_len, "batch": shape.global_batch,
+           "batch_cut_from": 32, "dtype": cfg.dtype,
+           "prefill_s": prefill_s, "peak_gib": peak / 2 ** 30,
+           "launches": counts, "next_token": tok.reshape(-1).tolist(),
+           "cache_gib": _tree_bytes(pt, caches) / 2 ** 30}
+    emit(row)
+    _add(launches, counts)
+    del params, caches, toks
+    torch.cuda.empty_cache()
+    return row
+
+
+def step_decode_run(torch, shape_name: str, arch: str, layers, batch: int,
+                    kernels: dict, launches: dict) -> dict:
+    """One serve step at ``shape_name``'s cache (``decode_window``: the
+    arch's ring, long_500k's sliding-window variant, or decode_32k's full
+    32,768 slots) filled from a seed, index seq_len - 1 (the ring full),
+    then ``STEP_DECODE_TIMED`` steps timed and one under torch.profiler:
+    the decode kernel once per attention layer per step, tokens in the
+    vocabulary, the new cache finite where it was written."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+
+    dev = torch.device("cuda:0")
+    cfg = _step_cfg(arch, layers)
+    shape = _step_shape(shape_name, batch)
+    window = steps.decode_window(cfg, shape)
+    label = f"decode-{shape_name}-{arch}"
+    _fresh(torch, label)
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(4)
+    cache = pt.tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device=dev).normal_(
+            0.0, 0.5, generator=g),
+        M.cache_specs(cfg, batch, shape.seq_len, window))
+    tok = _step_tokens(torch, cfg, (batch, 1), 5, dev)
+    step = steps.make_serve_step(cfg, shape)
+    index = shape.seq_len - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    tok, cache = step(params, cache, tok, index)
+    torch.cuda.synchronize()
+    counts = _scan_launches(kernels)
+    check(counts == expected_step_launches(cfg, "decode"),
+          f"{label}: launches {counts}")
+    t0 = time.perf_counter()
+    for _ in range(STEP_DECODE_TIMED):
+        tok, cache = step(params, cache, tok, index)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / STEP_DECODE_TIMED
+    (tok, cache), prof_wall, summary = _profiled(
+        torch, lambda: step(params, cache, tok, index))
+    peak = torch.cuda.max_memory_allocated()
+    check(0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size,
+          f"{label}: tokens")
+    # every leaf finite (the big KV leaves a group slice at a time)
+    finite = all(bool(torch.isfinite(x).all())
+                 for c in pt.tree_leaves(cache)
+                 for x in (c if c.dim() > 4 else (c,)))
+    check(finite, f"{label}: non-finite cache")
+    row = {"phase": "steps", "run": label, "kind": "decode", "arch": arch,
+           "shape": shape_name, "layers": cfg.num_layers,
+           "full_layers": _step_cfg(arch).num_layers,
+           "params": cfg.param_count(), "batch": batch,
+           "cache_slots": (min(window, shape.seq_len) if window
+                           else shape.seq_len),
+           "cache_gib": _tree_bytes(pt, cache) / 2 ** 30,
+           "step_ms": step_ms, "profiled_step_ms": 1e3 * prof_wall,
+           "peak_gib": peak / 2 ** 30, "launches_per_step": counts,
+           "device_idle_share": summary["device_idle_share"],
+           "device_busy_s": summary["device_busy_s"],
+           "top": summary["top"][:5]}
+    emit(row)
+    _add(launches, counts)
+    del params, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+def _leaf_names(tree, path=()):
+    """Each leaf's key path, in ``pytree.tree_flatten`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                              path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, c in enumerate(tree)
+                for n in _leaf_names(c, path + (str(i),))]
+    return [path]
+
+
+def _leaf_gap(a, b) -> float:
+    """max |a - b| over the largest |b|, b on the CPU."""
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def step_parity(torch, arch: str, layers: int) -> dict:
+    """The card against the CPU port in f32 at full width and ``layers``
+    (one group), from the same seeded weights and tokens: a train step of
+    256 tokens (loss to rtol ``STEP_PARITY_TOL``; the gradients, read
+    from Adam's first moment after the step, to that of the tree's largest
+    element, and each leaf to ``STEP_LEAF_GRAD_TOL`` of its own largest
+    element; and the AdamW update: the first step is sign-like, so an
+    element within float noise of zero may move by up to lr either way: the
+    update is compared where |g| stands above 100 times the tree's largest
+    gradient gap between the devices (held under the tolerance above) and
+    above 100 eps, so that the update's error is under 1e-4 of lr, and the
+    new params may differ by the one ulp the f32 sum p + u rounds to; the
+    count excluded is reported; a zero gradient's element moves by the
+    weight decay alone and is compared), a prefill of 2048
+    (next token equal, last logits to the tolerance of the largest |logit|)
+    and a decode step at batch 4 against a seeded cache (tokens equal, the
+    new cache to the tolerance of its largest element)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.utils import pytree as pt
+
+    dev = torch.device("cuda:0")
+    cpu = torch.device("cpu")
+    cfg = _step_cfg(arch, layers, dtype="float32")
+    cparams = M.init_model(torch.Generator().manual_seed(6), cfg)
+    gparams = pt.tree_map(lambda t: t.to(dev), cparams)
+    tol = STEP_PARITY_TOL
+    label = f"parity-{arch}"
+    size = (1, 256)
+    cb = {"tokens": _step_tokens(torch, cfg, size, 7, cpu),
+          "labels": _step_tokens(torch, cfg, size, 8, cpu)}
+    gb = pt.tree_map(lambda t: t.to(dev), cb)
+
+    opt = steps.default_optimizer()
+    step = steps.make_train_step(cfg, opt)
+    gnew, gstate, gm = step(gparams, opt.init(gparams), gb)
+    cnew, cstate, cm = step(cparams, opt.init(cparams), cb)
+    # after one step Adam's first moment is (1 - b1) g, rounded once: the
+    # gradients, compared without a second backward pass
+    gg = [t.cpu() for t in pt.tree_leaves(gstate["m"])]
+    cg = pt.tree_leaves(cstate["m"])
+    del gstate, cstate
+    top = max(float(g.abs().max()) for g in cg)
+    noise = max(float((a - b).abs().max()) for a, b in zip(gg, cg))
+    grad_gap = noise / top
+    names = ["/".join(n) for n in _leaf_names(cparams)]
+    per_leaf = sorted(((_leaf_gap(a, b), n) for a, b, n in zip(gg, cg, names)),
+                      reverse=True)
+    upd_gap, excluded, total = 0.0, 0, 0
+    for gn, cp, cn, g in zip(pt.tree_leaves(gnew), pt.tree_leaves(cparams),
+                             pt.tree_leaves(cnew), cg):
+        cu = cn - cp
+        clear = (g == 0) | ((g.abs() > 100 * noise)
+                            & (g.abs() > 100 * 0.1 * STEP_ADAM_EPS))
+        excluded += int((~clear).sum())
+        total += g.numel()
+        # the new params are f32: p + u may round one ulp of p either way
+        ulp = torch.nextafter(cn.abs(), torch.tensor(math.inf)) - cn.abs()
+        off = ((gn.cpu() - cn).abs() - ulp).clamp_min(0)
+        if bool(clear.any()):
+            upd_gap = max(upd_gap, float(off[clear].max()
+                                         / cu.abs().max()))
+    del gnew, cnew
+    gl, cl = float(gm["loss"]), float(cm["loss"])
+    train = {"loss": gl, "cpu_loss": cl, "ce": float(gm["ce"]),
+             "cpu_ce": float(cm["ce"]), "grad_gap": grad_gap,
+             "grad_gap_worst_leaves": per_leaf[:3],
+             "leaf_grad_tol": STEP_LEAF_GRAD_TOL,
+             "update_gap": upd_gap, "update_excluded": excluded,
+             "elements": total}
+    emit({"phase": "steps_parity_train", "run": label, **train})
+    check(abs(gl - cl) <= tol * abs(cl), f"{label}: loss {gl} vs {cl}")
+    check(grad_gap <= tol, f"{label}: gradient gap {grad_gap}")
+    check(per_leaf[0][0] <= STEP_LEAF_GRAD_TOL,
+          f"{label}: gradient leaf gaps {per_leaf[:3]}")
+    check(upd_gap <= tol, f"{label}: update gap {upd_gap}")
+
+    toks = _step_tokens(torch, cfg, (1, 2048), 9, cpu)
+    pshape = _step_shape("prefill_32k", 1)
+    prefill = steps.make_prefill_step(cfg, pshape)
+    gtok, _ = prefill(gparams, {"tokens": toks.to(dev)})
+    ctok, _ = prefill(cparams, {"tokens": toks})
+    with torch.no_grad():
+        glog = M.forward(gparams, toks.to(dev), cfg, logits_slice=1,
+                         remat=False)[0]
+        clog = M.forward(cparams, toks, cfg, logits_slice=1, remat=False)[0]
+    logit_gap = _leaf_gap(glog, clog)
+    check(torch.equal(gtok.cpu(), ctok), f"{label}: prefill tokens")
+    check(logit_gap <= tol, f"{label}: prefill logits gap {logit_gap}")
+
+    dshape = _step_shape("decode_32k", 4)
+    window = steps.decode_window(cfg, dshape)
+    gen = torch.Generator().manual_seed(10)
+    ccache = pt.tree_map(
+        lambda s: torch.randn(s.shape, generator=gen).to(s.dtype),
+        M.cache_specs(cfg, 4, dshape.seq_len, window))
+    dtok = _step_tokens(torch, cfg, (4, 1), 11, cpu)
+    serve = steps.make_serve_step(cfg, dshape)
+    gt, gc = serve(gparams, pt.tree_map(lambda t: t.to(dev), ccache),
+                   dtok.to(dev), dshape.seq_len - 1)
+    ct, cc = serve(cparams, ccache, dtok, dshape.seq_len - 1)
+    cache_gap = max(_leaf_gap(a, b) for a, b in zip(pt.tree_leaves(gc),
+                                                    pt.tree_leaves(cc)))
+    check(torch.equal(gt.cpu(), ct), f"{label}: decode tokens")
+    check(cache_gap <= tol, f"{label}: decode cache gap {cache_gap}")
+    row = {"phase": "steps_parity", "run": label, "arch": arch,
+           "layers": layers, "params": cfg.param_count(), "dtype": "float32",
+           "train": train, "prefill_tokens": 2048,
+           "prefill_logit_gap": logit_gap,
+           "decode_batch": 4, "decode_cache_gap": cache_gap, "tol": tol}
+    emit(row)
+    del gparams, cparams
+    torch.cuda.empty_cache()
+    return row
+
+
+def swa_step_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
+                 cap: float = 0.0, seed: int = 12) -> dict:
+    """swa_decode_attention at a decode_32k shape of the path: bf16, every
+    slot valid (the ring full, or granite-34b's 32,768-slot full cache),
+    against its plain version (run over batch slices of at most
+    ``STEP_PLAIN_BYTES`` of repeated f32 K and V), timed as a CUDA graph
+    (the caches exceed the L2), beside F.scaled_dot_product_attention (its
+    GQA map; over batch slices alike)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.empty(b, h, d, dtype=bf, device=dev).normal_(generator=g)
+    k = torch.empty(b, s, kv, d, dtype=bf, device=dev).normal_(generator=g)
+    v = torch.empty(b, s, kv, d, dtype=bf, device=dev).normal_(generator=g)
+    vl = torch.full((b,), s, dtype=torch.int32, device=dev)
+    per_seq = 2 * 4 * s * h * d + 8 * h * s
+    chunk = max(1, min(b, STEP_PLAIN_BYTES // per_seq))
+    sl = [slice(i, min(i + chunk, b)) for i in range(0, b, chunk)]
+    plain = lambda: torch.cat([swa_attn.swa_decode_plain(
+        q[i], k[i], v[i], vl[i], cap) for i in sl])
+    fn = lambda: swa_attn.swa_decode_attention(q, k, v, vl, cap)
+    out, ref = fn(), plain()
+    err = float((out.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    tag = {"shape": [b, s, h, kv, d], "dtype": "bfloat16", "softcap": cap,
+           "valid_len": s}
+    check(err <= SWA_BF16_RTOL * top,
+          f"swa_decode_attention {tag}: err {err}, max |ref| {top}")
+    check(torch.equal(out, fn()), f"swa_decode_attention {tag} not "
+                                  "repeatable")
+    kt = timings(fn, 10)
+    plain_ms = device_ms(plain, reps=1, trials=3)
+    lib = lib_err = None
+    if not cap:
+        qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1,
+                                                                       3)
+        sdpa = lambda: torch.cat([F.scaled_dot_product_attention(
+            qs[i], ks[i], vs[i], enable_gqa=h != kv) for i in sl])
+        lib_err = float((sdpa()[:, :, 0].float() - ref.float()).abs().max())
+        lib = device_ms(sdpa, reps=5, trials=3)
+    nbytes = 2 * 2 * b * h * d + 2 * 2 * b * s * kv * d
+    bms, by = bound_ms(nbytes, b * s * h * (4 * d + 5), BF16_FLOPS_PER_S)
+    row = {"phase": "kernel", "name": "swa_decode_attention", **tag,
+           "path": "steps decode", "max_abs_err": err, "max_abs_ref": top,
+           "rtol": SWA_BF16_RTOL, "limit": SWA_BF16_RTOL * top,
+           "ms": kt["device"], "call_ms": kt["call"],
+           "plain_ms": plain_ms, "plain_batch_slice": chunk,
+           "bound_ms": bms, "bound_by": by,
+           "gb_per_s": nbytes / kt["device"] / 1e6, "library_ms": lib,
+           "library_max_abs_err": lib_err}
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def rglru_step_row(torch, rglru, b: int, s: int, w: int,
+                   seed: int = 13) -> dict:
+    """rglru_scan at the 32,768-token prefill of the path: log a_t f32,
+    xi bf16 (the model's dtype), from zero, against its plain version. The
+    plain version is a Python loop of ~3 launches a step: its time is one
+    eager call between CUDA events (no CUDA graph of ~10^5 nodes)."""
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    la = -0.8 * torch.rand(b, s, w, device=dev, generator=g)
+    xi = torch.randn(b, s, w, device=dev, generator=g).to(torch.bfloat16)
+    out, last = rglru.rglru_scan(la, xi)
+    ref, rlast = rglru.rglru_scan_plain(la, xi)
+    # h rounds to bf16 once from f32 values that differ in the last bits
+    # (RGLRU_ATOL): the two roundings may land a bf16 ulp apart, 2^-7 of the
+    # larger |h| at most
+    o, r = out.float(), ref.float()
+    excess = ((o - r).abs() - RGLRU_ATOL) / torch.maximum(o.abs(), r.abs())
+    err_h = float(excess.nan_to_num(0.0).max())
+    err = float((last - rlast).abs().max())
+    tag = {"shape": [b, s, w], "xi_dtype": "bfloat16"}
+    check(err <= RGLRU_ATOL and err_h <= RGLRU_BF16_REL,
+          f"rglru_scan {tag}: errors {err}, relative h {err_h}")
+    kt = timings(lambda: rglru.rglru_scan(la, xi), 5)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    rglru.rglru_scan_plain(la, xi)
+    ev[1].record()
+    ev[1].synchronize()
+    nbytes = 4 * b * s * w + 2 * b * s * w + 2 * b * s * w + 4 * b * w
+    bms, by = bound_ms(nbytes, 9 * b * s * w)
+    return {"phase": "kernel", "name": "rglru_scan", **tag,
+            "path": "steps prefill", "max_abs_err": err,
+            "max_abs_err_h_bf16": float((o - r).abs().max()),
+            "max_rel_excess_h_bf16": err_h, "atol": RGLRU_ATOL,
+            "ms": kt["device"], "call_ms": kt["call"],
+            "plain_ms": ev[0].elapsed_time(ev[1]), "bound_ms": bms,
+            "bound_by": by, "gb_per_s": nbytes / kt["device"] / 1e6,
+            "library_ms": None}
+
+
+def phase_steps(torch, ssd, ssd_ops, SSM, rglru, swa_attn,
+                launches: dict) -> None:
+    """The step programs of ``launch/steps.py`` on the card at the four
+    assigned shapes (``STEP_*``; the dry run's meta traces of the train
+    configs run meanwhile in worker processes on the CPU), the card against
+    the CPU port (``STEP_PARITY``), and the three kernels at the new
+    shapes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    kernels = {"ssd_scan": ssd.ssd_scan, "rglru_scan": rglru.rglru_scan,
+               "swa_decode_attention": swa_attn.swa_decode_attention}
+    secs = {}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=len(STEP_TRAIN),
+                             mp_context=ctx) as pool:
+        metas = {arch: pool.submit(meta_train_record, arch, layers,
+                                   STEP_TRAIN_BATCH)
+                 for arch, layers in STEP_TRAIN}
+        t0 = time.perf_counter()
+        for arch in STEP_PREFILL:
+            step_prefill_run(torch, arch, kernels, launches)
+        secs["prefill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for shape_name, arch, layers, batch in STEP_DECODE:
+            step_decode_run(torch, shape_name, arch, layers, batch, kernels,
+                            launches)
+        secs["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for arch, layers in STEP_TRAIN:
+            step_train_run(torch, arch, layers, metas[arch], kernels,
+                           launches)
+        secs["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch, layers in STEP_PARITY.items():
+        step_parity(torch, arch, layers)
+    secs["parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for shape in STEP_SWA_SHAPES:
+        emit(swa_step_row(torch, swa_attn, *shape))
+    emit({**ssd_row(torch, ssd_ops, SSM, *STEP_SSD_SHAPE),
+          "path": "steps prefill"})
+    emit(rglru_step_row(torch, rglru, *STEP_RGLRU_SHAPE))
+    secs["kernel_rows"] = time.perf_counter() - t0
+    emit({"phase": "phase_seconds", "steps": secs})
 
 
 def _time_calls(obj, attr: str, acc: list) -> None:
@@ -3614,12 +4354,14 @@ def main(argv) -> int:
     phase_arch_scenarios(torch, ssd, launches)
     t10 = time.perf_counter()
     phase_family_train(torch, fedagg, launches)
+    t11 = time.perf_counter()
+    phase_steps(torch, ssd, ssd_ops, SSM, rglru, swa_attn, launches)
     emit({"phase": "phase_seconds", "comparison": t1 - t0,
           "attack": t2 - t1, "cohort": t3 - t2, "budget": t4 - t3,
           "population": t5 - t4, "checkpoint": t6 - t5,
           "arch_grads": t7 - t6, "arch_train": t8 - t7,
           "sharded": t9 - t8, "arch_scenarios": t10 - t9,
-          "family_train": time.perf_counter() - t10})
+          "family_train": t11 - t10, "steps": time.perf_counter() - t11})
 
     fed_csrc = "src/repro_torch/kernels/fedagg/csrc/"
     fed_ref = "src/repro/kernels/fedagg/fedagg.py:"

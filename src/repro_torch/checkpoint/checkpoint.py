@@ -34,22 +34,25 @@ _FLAT_RE = re.compile(r"flat_(\d+)\.npz$")
 _FLAT_KEY = "flat_vec"
 
 
+def _walk_named(node, path: Tuple[str, ...],
+                out: List[Tuple[str, Any]]) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk_named(node[k], path + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _walk_named(c, path + (str(i),), out)
+    else:
+        out.append(("/".join(path), node))
+
+
 def _named_leaves(tree: PyTree) -> List[Tuple[str, Any]]:
     """``(path name, leaf)`` in ``pt.tree_flatten`` order (the JAX
-    package's): sorted dict keys, then list and tuple indices."""
-    out = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, c in enumerate(node):
-                walk(c, path + (str(i),))
-        else:
-            out.append(("/".join(path), node))
-
-    walk(tree, ())
+    package's): sorted dict keys, then list and tuple indices. A
+    module-level walker: a nested one calling itself is a reference cycle
+    that keeps the leaves alive until the cyclic collector runs."""
+    out: List[Tuple[str, Any]] = []
+    _walk_named(tree, (), out)
     return out
 
 

@@ -1,6 +1,5 @@
-"""The training input shape of the architecture tasks, and the
-stacked-cohort footprint law the memory-budget planner applies
-(``repro_torch.core.budget``).
+"""The four assigned input shapes, and the stacked-cohort footprint law the
+memory-budget planner applies (``repro_torch.core.budget``).
 
 The law is pure shape arithmetic — no tensors, no allocation — so the
 planner can evaluate it before any model state exists. The shape, the
@@ -18,7 +17,18 @@ from repro_torch.configs.base import SHAPES, ShapeConfig
 #: and batch to the run's
 TRAIN_4K = ShapeConfig(name="train_4k", seq_len=4_096, global_batch=256,
                        kind="train")
-SHAPES.register(TRAIN_4K.name)(TRAIN_4K)
+PREFILL_32K = ShapeConfig(name="prefill_32k", seq_len=32_768,
+                          global_batch=32, kind="prefill")
+#: one new token against a cache of ``seq_len`` slots
+DECODE_32K = ShapeConfig(name="decode_32k", seq_len=32_768,
+                         global_batch=128, kind="decode")
+LONG_500K = ShapeConfig(name="long_500k", seq_len=524_288, global_batch=1,
+                        kind="decode")
+
+for _s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K):
+    SHAPES.register(_s.name)(_s)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 #: Stacked per-client parameter-state copies a cohort dispatch holds live:
 #: the params row, the momentum row, the delta output row, and one

@@ -7,9 +7,10 @@ when none is given).
 
 On a CUDA tensor :func:`rglru_scan` launches its hand-written kernel
 (``csrc/rglru.cu``, built by ``nvcc`` for ``sm_90a`` at first use) or
-raises; on a CPU tensor it runs :func:`rglru_scan_plain`. Nothing falls back
-from one to the other. ``rglru_scan.launches`` goes up by one per call that
-launches the kernel (one CUDA launch).
+raises; on a CPU tensor it runs :func:`rglru_scan_plain`, and on a meta
+tensor (the dry run's trace) the same plain version computes shapes only.
+Nothing falls back from one to the other. ``rglru_scan.launches`` goes up
+by one per call that launches the kernel (one CUDA launch).
 """
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ def rglru_scan(log_at: torch.Tensor, xi: torch.Tensor,
     build.check_tensor("xi", xi, _DTYPES, (b, s, w), dev)
     if h0 is not None:
         build.check_tensor("h0", h0, (torch.float32,), (b, w), dev)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return rglru_scan_plain(log_at, xi, h0)
     lib = load_library()
     out = torch.empty_like(xi)

@@ -4,11 +4,13 @@ masked, an optional tanh softcap, grouped-query heads.
 
 On a CUDA tensor :func:`swa_decode_attention` launches its hand-written
 kernel (``csrc/swa_attn.cu``, built by ``nvcc`` for ``sm_90a`` at first use)
-or raises; on a CPU tensor it runs :func:`swa_decode_plain`. Nothing falls
-back from one to the other. ``swa_decode_attention.launches`` goes up by one
-per call that launches the kernel (two CUDA launches: the pieces, then their
-merge). :func:`piece_slots` is the kernel's launch shape, computed here so
-that the CPU tests reach it.
+or raises; on a CPU tensor it runs :func:`swa_decode_plain`, and on a meta
+tensor (the dry run's trace) the same plain version computes shapes only.
+Nothing falls back from one to the other.
+``swa_decode_attention.launches`` goes up by one per call that launches the
+kernel (two CUDA launches: the pieces, then their merge).
+:func:`piece_slots` is the kernel's launch shape, computed here so that the
+CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -155,7 +157,7 @@ def swa_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     build.check_tensor("valid_len", valid_len, (torch.int32,), (b,), dev)
     if h % kv:
         raise ValueError(f"{h} query heads do not share {kv} kv heads evenly")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return swa_decode_plain(q, k_cache, v_cache, valid_len, softcap)
     if d > MAX_D or d % 4:
         raise ValueError(f"the kernel takes a head dim <= {MAX_D} that is a "

@@ -16,11 +16,18 @@ of XLA's forced host device count: under it the home device is counted
 code path with ``n`` separate shard allocations and ``n`` launches per
 sweep. Only tests and ``chip_smoke.py`` enter it; no path of the package
 does.
+
+The model layouts of the dry run (``sharding/specs.py``, ``launch/
+dryrun.py``) live on a :class:`LogicalMesh` instead: axis names and sizes
+and no device, the reference's production meshes ``(data 16, model 16)``
+and ``(pod 2, data 16, model 16)`` with its axis names, so that the two
+packages' layouts can be compared. Nothing is placed on it.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Iterator, Optional, Tuple
 
 import torch
@@ -143,3 +150,58 @@ def make_cohort_mesh(n_pods: int, device: Device = None) -> Mesh:
     n_pods`` stacked client rows; nothing crosses pods during local
     training."""
     return make_fedagg_mesh(1, n_pods, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """Named mesh axes and their sizes, with no devices: what the layout
+    rules read (``sharding/specs.py``). A leaf laid out on it is split
+    over the axes its spec names, each dim rounded up."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """The production mesh: 16 x 16 = 256 devices, axes (data, model), or
+    2 x 16 x 16 = 512, axes (pod, data, model), where ``pod`` is the
+    federated client axis."""
+    if multi_pod:
+        return LogicalMesh(("pod", "data", "model"), (2, 16, 16))
+    return LogicalMesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(shape: Optional[Tuple[int, ...]] = None,
+                   axes: Tuple[str, ...] = ("data", "model"),
+                   device: Device = None) -> LogicalMesh:
+    """A mesh over the devices this process has (:func:`devices`; one CPU
+    or one card gives (1, 1)); ``shape`` must use them all."""
+    n = len(devices(device))
+    if shape is None:
+        shape = (n,) + (1,) * (len(axes) - 1)
+    if math.prod(shape) != n or len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} over axes {axes} does "
+                         f"not fit {n} devices")
+    return LogicalMesh(tuple(axes), tuple(shape))
+
+
+# Roofline constants of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+# rates without sparsity, at its 700 W power limit)
+#: bf16 tensor-core peak, FLOP/s
+PEAK_FLOPS_BF16 = 989e12
+#: f32 peak outside the tensor cores (TF32 off), FLOP/s
+PEAK_FLOPS_F32 = 67e12
+#: HBM3 bandwidth, bytes/s
+HBM_BW = 3.35e12

@@ -26,9 +26,11 @@ Public entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -212,7 +214,7 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
             window: int = 0, collect_cache: bool = False,
             remat: bool = True, q_chunk: int = 1024, kv_chunk: int = 1024,
             skip_masked_blocks: bool = True, attn_mode: str = "auto",
-            logits_slice: Optional[int] = None):
+            logits_slice: Optional[int] = None, batch_axes=None):
     """Full-sequence forward. Returns (logits, aux_loss, caches|None).
 
     tokens: (B, S), or (B, Q, S) for multi-codebook audio (logits then
@@ -224,8 +226,16 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
     window: 0 -> cfg.sliding_window (natively windowed archs) else full attn.
     collect_cache: also return per-layer (k, v) / states for decode handoff.
     logits_slice: if set, only the last `logits_slice` positions get logits.
-    remat: accepted for the reference's signature; the activations are kept
-    for the backward pass, not recomputed.
+    remat: with grad mode on, each layer group's body runs under
+    non-reentrant ``torch.utils.checkpoint`` (the reference's
+    ``nothing_saveable`` group checkpoint): the backward keeps one input per
+    group and recomputes the group's forward, so the SSD and RG-LRU scans
+    (their kernels on CUDA) run twice per group and step. Values and
+    gradients are those of ``remat=False``. The tail layers are not
+    checkpointed, as in the reference.
+    batch_axes: accepted for the reference's signature and ignored; the
+    reference pins the activations' batch sharding with it, and a
+    single-controller forward has no layout to constrain.
 
     With ``collect_cache=False`` (training) the forward is differentiable
     and ``torch.func.vmap`` can batch it over clients: the scans go through
@@ -234,7 +244,7 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
     :func:`~repro_torch.models.layers.chunked_attention`, whose block
     choices depend on shapes alone.
     """
-    del remat
+    del batch_axes
     pat, n_groups, tail = _grouping(cfg)
     window = window or cfg.sliding_window
     x = L.embed_fwd(params["embed"], tokens, cfg, patch_embeds=patch_embeds)
@@ -243,17 +253,24 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
     kw = dict(window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
               skip_masked_blocks=skip_masked_blocks, attn_mode=attn_mode)
 
-    aux = x.new_zeros((), dtype=torch.float32)
-    caches: Dict[str, PyTree] = {}
-    group_caches, group_aux = [], []
-    for g in range(n_groups):
-        gp = _group(params["layers"], g)
+    def group_body(x, gp):
         gc = {}
         ga = x.new_zeros((), dtype=torch.float32)
         for i, k in enumerate(pat):
             name = f"b{i}_{k}"
             x, gc[name], a = block_fwd(gp[name], x, positions, cfg, k, **kw)
             ga = ga + a
+        return x, ga, gc
+
+    body = group_body
+    if remat and torch.is_grad_enabled():
+        body = functools.partial(torch.utils.checkpoint.checkpoint,
+                                 group_body, use_reentrant=False)
+    aux = x.new_zeros((), dtype=torch.float32)
+    caches: Dict[str, PyTree] = {}
+    group_caches, group_aux = [], []
+    for g in range(n_groups):
+        x, ga, gc = body(x, _group(params["layers"], g))
         group_caches.append(gc)
         group_aux.append(ga)
     if n_groups:
@@ -280,17 +297,23 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def decode_step(params: PyTree, cache: PyTree, tokens: torch.Tensor,
                 cache_index: int, cfg: ModelConfig, *, window: int = 0):
-    """tokens: (B, 1), or (B, Q, 1) for multi-codebook audio. Returns
-    (logits, new_cache); the cache given is left as it was."""
+    """tokens: (B, 1), or (B, Q, 1) for multi-codebook audio; cache_index
+    the write slot's position, a Python int (a 0-d tensor is read once, a
+    host wait on CUDA). Returns (logits, new_cache); the cache given is
+    left as it was."""
     pat, n_groups, tail = _grouping(cfg)
     window = window or cfg.sliding_window
     x = L.embed_fwd(params["embed"], tokens, cfg)
     bsz = x.shape[0]
-    positions = torch.full((bsz, 1), int(cache_index), dtype=torch.int64,
+    cache_index = int(cache_index)
+    positions = torch.full((bsz, 1), cache_index, dtype=torch.int64,
                            device=x.device)
     new_cache: Dict[str, PyTree] = {}
     if n_groups:
-        group_caches = []
+        # each group's new caches go into one stack allocated once, and go
+        # then: a decode_32k cache (32 GB for h2o-danube-1.8b at batch 128)
+        # is held twice at most, not three times
+        stacked = None
         for g in range(n_groups):
             gp, gcache = _group(params["layers"], g), _group(cache["layers"], g)
             gc = {}
@@ -299,8 +322,12 @@ def decode_step(params: PyTree, cache: PyTree, tokens: torch.Tensor,
                 x, gc[name], _ = block_fwd(gp[name], x, positions, cfg, k,
                                            window=window, cache=gcache[name],
                                            cache_index=cache_index)
-            group_caches.append(gc)
-        new_cache["layers"] = _stack(group_caches)
+            if stacked is None:
+                stacked = pt.tree_map(
+                    lambda c: c.new_empty((n_groups, *c.shape)), gc)
+            pt.tree_map(lambda o, c: o[g].copy_(c), stacked, gc)
+            del gc
+        new_cache["layers"] = stacked
     for j, k in enumerate(tail):
         name = f"tail{j}_{k}"
         x, c, _ = block_fwd(params[name], x, positions, cfg, k, window=window,

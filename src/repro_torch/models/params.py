@@ -2,21 +2,40 @@
 
 Each model block declares its parameters as a dict of :class:`ParamDef`
 (shape, logical axes, initializer) beside its forward, as the JAX package
-does. From one def-tree come the materialized tensors (:func:`init_params`)
-and the parameter count (:func:`count_params`). The logical axes are kept
-for the model-sharding slice; nothing here reads them yet.
+does. From one def-tree come
+
+* :func:`init_params`: the materialized tensors;
+* :func:`abstract_params`: meta tensors, shapes and dtypes with no storage
+  (the reference's ``ShapeDtypeStruct`` s; the dry run traces on them);
+* :func:`partition_spec_tree`: the layout of each leaf over a logical mesh,
+  from the logical axes and a rule table (``sharding/specs.py``);
+* :func:`count_params`: the parameter count.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.utils import pytree as pt
 
 PyTree = Any
+#: one entry of a layout per dim: replicated (None), one mesh axis, or
+#: several mesh axes in order
+AxisSpec = Union[None, str, Tuple[str, ...]]
+#: a leaf's layout: one entry per dim, ``tuple(PartitionSpec)`` of the
+#: reference
+Spec = Tuple[AxisSpec, ...]
+
+
+def spec_entry(axes) -> AxisSpec:
+    """One dim's entry as ``PartitionSpec`` normalizes it: a tuple of one
+    axis is that axis's name."""
+    if isinstance(axes, (tuple, list)):
+        return axes[0] if len(axes) == 1 else tuple(axes)
+    return axes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -81,6 +100,48 @@ def init_params(gen: torch.Generator, defs: PyTree,
     are not (``jax.random`` is another generator), so a parity test carries
     the reference's weights across (``repro_torch.convert``)."""
     return pt.tree_map(lambda d: _init_leaf(gen, d, param_dtype), defs)
+
+
+def abstract_params(defs: PyTree, param_dtype: str = "float32") -> PyTree:
+    """The def-tree as meta tensors of its shapes and dtypes: no storage on
+    any device, and no value to read."""
+    return pt.tree_map(
+        lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype
+                                                         or param_dtype),
+                              device="meta"), defs)
+
+
+def partition_spec_tree(defs: PyTree, rules: Dict[str, AxisSpec],
+                        mesh_axis_sizes: Dict[str, int]) -> PyTree:
+    """Logical axes -> a :data:`Spec` per leaf, skipping placements that do
+    not divide.
+
+    A logical axis maps to its mesh axis (or axes) only if the dim's size is
+    a multiple of the mesh axes' product and no earlier dim of the leaf took
+    one of those axes: the reference's ``partition_spec_tree``, whose
+    ``PartitionSpec`` s these tuples equal entry for entry.
+    """
+
+    def spec(d: ParamDef) -> Spec:
+        used = set()
+        out = []
+        for dim, ax in zip(d.shape, d.axes):
+            mesh_ax = rules.get(ax) if ax else None
+            if mesh_ax is None:
+                out.append(None)
+                continue
+            axes = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+            size = 1
+            for a in axes:
+                size *= mesh_axis_sizes.get(a, 1)
+            if any(a in used for a in axes) or dim % size != 0:
+                out.append(None)
+            else:
+                out.append(spec_entry(mesh_ax))
+                used.update(axes)
+        return tuple(out)
+
+    return pt.tree_map(spec, defs)
 
 
 def count_params(defs: PyTree) -> int:

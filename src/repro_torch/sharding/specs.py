@@ -1,4 +1,5 @@
-"""Layouts of the model-sharded flat state and the pod-split cohort.
+"""Layouts of the model-sharded flat state and the pod-split cohort, and the
+model layout rules of the dry run.
 
 A model-sharded flat vector is a **tuple of S contiguous shard tensors**,
 shard ``s`` on the mesh's ``s``-th model device, each with its own storage
@@ -18,15 +19,34 @@ does flat vectors.
   the q block it dequantizes (:func:`split_scales`).
 * A cohort's stacked client state splits along its leading client axis
   into equal pod blocks (:func:`split_cohort`).
+
+The model layout rules (:data:`DEFAULT_RULES` to :func:`cache_spec_tree`)
+are the reference's logical-axis -> mesh-axis rules, MaxText-style 2-D
+sharding with a federated ``pod`` axis, on a ``launch.mesh.LogicalMesh``:
+
+* ``model``: tensor parallelism over heads, mlp, experts, vocab;
+* ``data``: batch parallelism for activations, and FSDP-style weight
+  sharding along the ``embed`` logical axis;
+* ``pod`` (multi-pod mesh only): the federated client axis, which extends
+  the batch.
+
+A spec is a tuple with one entry per dim: None (replicated), a mesh axis
+name, or a tuple of them; it equals ``tuple(PartitionSpec)`` of the
+reference's. The dry run reads them to size each leaf per device; the
+single-controller port places nothing by them.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fedagg.fedagg import BLOCK, QBLOCK
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import LogicalMesh, Mesh
+from repro_torch.models.model import cache_specs, model_defs
+from repro_torch.models.params import (AxisSpec, Spec, partition_spec_tree,
+                                       spec_entry)
 from repro_torch.utils import pytree as pt
 
 PyTree = Any
@@ -85,3 +105,138 @@ def split_cohort(stacked: PyTree, n_pods: int) -> Tuple[PyTree, ...]:
     r = c // n_pods
     return tuple(pt.tree_map(lambda t: t[p * r:(p + 1) * r], stacked)
                  for p in range(n_pods))
+
+
+# ---------------------------------------------------------------------------
+# Model layout rules (the dry run's)
+# ---------------------------------------------------------------------------
+
+DEFAULT_RULES: Dict[str, AxisSpec] = {
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "expert": "model",
+    "embed": "data",      # FSDP: weights sharded over the data axis
+}
+
+
+def preset_rules(preset: str, mesh: LogicalMesh) -> Dict[str, AxisSpec]:
+    """The named strategies of the reference:
+
+    * ``tp``: :data:`DEFAULT_RULES`, tensor parallel on ``model`` and ZeRO
+      on ``data``;
+    * ``dp``: ZeRO-3 data parallelism: weights shard their output-feature
+      dims (vocab, heads, mlp, experts) over ``data``, never d_model, and
+      the batch spreads over every axis (``batch_spec(include_model=True)``);
+    * ``ep``: expert-parallel serving: experts over ``model``, the expert
+      ffn width over ``data``, attention split along the head dim, no
+      d_model sharding.
+    """
+    if preset == "tp":
+        return dict(DEFAULT_RULES)
+    if preset == "dp":
+        return {"vocab": "data", "heads": "data", "kv_heads": "data",
+                "mlp": "data", "expert": "data", "embed": None}
+    if preset == "ep":
+        return {"vocab": "model", "heads": None, "kv_heads": None,
+                "head_dim": "model", "mlp": "data", "expert": "model",
+                "embed": None}
+    raise ValueError(preset)
+
+
+def param_spec_tree(cfg: ModelConfig, mesh: LogicalMesh,
+                    rules: Optional[Dict[str, AxisSpec]] = None) -> PyTree:
+    """A spec per leaf of ``model_defs(cfg)``. Rules naming an axis the
+    mesh lacks drop it (a tuple rule keeps its present axes)."""
+    rules = dict(rules or DEFAULT_RULES)
+
+    def clean(v):
+        if isinstance(v, tuple):
+            kept = tuple(a for a in v if a in mesh.axis_names)
+            return kept if kept else None
+        return v if v in mesh.axis_names else None
+
+    rules = {k: clean(v) for k, v in rules.items()}
+    return partition_spec_tree(model_defs(cfg), rules, mesh.axis_sizes)
+
+
+def batch_spec(mesh: LogicalMesh, batch_size: int,
+               include_model: bool = False) -> Spec:
+    """The batch dim over every data-like axis present (pod first) whose
+    running product divides the batch; ``include_model``: the pure-DP
+    preset also spreads it over ``model``. A one-entry spec."""
+    names = ("pod", "data", "model") if include_model else ("pod", "data")
+    sizes = mesh.axis_sizes
+    total = 1
+    used = []
+    for a in (a for a in names if a in mesh.axis_names):
+        if batch_size % (total * sizes[a]) == 0:
+            used.append(a)
+            total *= sizes[a]
+    return (spec_entry(used) if used else None,)
+
+
+def activation_spec(mesh: LogicalMesh, batch_size: int) -> Spec:
+    """(batch, seq, embed) activations: batch over the data axes."""
+    return (batch_spec(mesh, batch_size)[0], None, None)
+
+
+def cache_layout(tree: PyTree, mesh: LogicalMesh, batch: int,
+                 prefer: str = "largest") -> PyTree:
+    """Specs of a cache tree whose leaves have shapes (the decode cache of
+    ``cache_specs``, or the caches a prefill collects): batch over the data
+    axes, plus one channel dim over ``model``: with ``prefer="largest"``
+    the largest trailing dim that ``model`` divides (the sequence of a KV
+    cache), with ``prefer="last"`` the last dim first (head dim, state N,
+    width). The stacked groups' (``"layers"``) leading group dim is
+    replicated and the rule applies to the dims after it."""
+    sizes = mesh.axis_sizes
+    b_axes = batch_spec(mesh, batch)[0]
+    model_ax = "model" if "model" in mesh.axis_names else None
+
+    def spec(shape: Tuple[int, ...]) -> Spec:
+        dims = [None] * len(shape)
+        dims[0] = b_axes
+        if model_ax is not None and len(shape) >= 2:
+            if prefer == "last":
+                cands = [len(shape) - 1] + list(range(1, len(shape) - 1))
+            else:
+                cands = sorted(range(1, len(shape)), key=lambda i: -shape[i])
+            for cand in cands:
+                if shape[cand] % sizes[model_ax] == 0:
+                    dims[cand] = model_ax
+                    break
+        return tuple(dims)
+
+    out = {k: pt.tree_map(lambda s: spec(tuple(s.shape)), v)
+           for k, v in tree.items() if k != "layers"}
+    if "layers" in tree:
+        out["layers"] = pt.tree_map(
+            lambda s: (None, *spec(tuple(s.shape[1:]))), tree["layers"])
+    return out
+
+
+def cache_spec_tree(cfg: ModelConfig, mesh: LogicalMesh, batch: int,
+                    cache_len: int, window: int,
+                    prefer: str = "largest") -> PyTree:
+    """Specs of the decode cache ``cache_specs(cfg, batch, cache_len,
+    window)`` by :func:`cache_layout`."""
+    return cache_layout(cache_specs(cfg, batch, cache_len, window), mesh,
+                        batch, prefer)
+
+
+def leaf_bytes(t, spec: Spec, mesh: LogicalMesh) -> int:
+    """Bytes of one device's block of a tensor or ``TensorSpec`` ``t`` laid
+    out by ``spec`` on ``mesh``: each dim over the product of its axes'
+    sizes, rounded up."""
+    sizes = mesh.axis_sizes
+    n = 1
+    for i, dim in enumerate(t.shape):
+        ax = spec[i] if i < len(spec) else None
+        split = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+            split *= sizes[a]
+        n *= -(-int(dim) // split)
+    return n * t.dtype.itemsize

@@ -21,36 +21,66 @@ PyTree = Any
 TreeDef = Any
 
 
+# The walkers are module-level functions that take their accumulator as an
+# argument: a nested function that calls itself holds its own closure cell,
+# a reference cycle, and every leaf it collected (a decode cache, a model's
+# params) would then stay alive until the cyclic garbage collector runs.
+
+
+def _flatten(node, leaves: List[Any]) -> TreeDef:
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys),
+                tuple(_flatten(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, len(node),
+                tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return None
+
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
     """Leaves in ``jax.tree.flatten`` order, and the structure to rebuild."""
     leaves: List[Any] = []
+    treedef = _flatten(tree, leaves)
+    return leaves, treedef
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, len(node),
-                    tuple(walk(c) for c in node))
-        leaves.append(node)
-        return None
 
-    return leaves, walk(tree)
+def _build(d: TreeDef, it) -> PyTree:
+    if d is None:
+        return next(it)
+    kind, keys, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, children)}
+    out = [_build(c, it) for c in children]
+    return tuple(out) if kind == "tuple" else out
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, children = d
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, children)}
-        out = [build(c) for c in children]
-        return tuple(out) if kind == "tuple" else out
 
-    return build(treedef)
+def _up_to(d: TreeDef, node, out: List[Any]) -> None:
+    if d is None:
+        out.append(node)
+        return
+    kind, keys, children = d
+    if kind == "dict":
+        for k, c in zip(keys, children):
+            _up_to(c, node[k], out)
+    else:
+        for i, c in enumerate(children):
+            _up_to(c, node[i], out)
+
+
+def leaves_up_to(treedef: TreeDef, tree: PyTree) -> List[Any]:
+    """The nodes of ``tree`` at the leaf positions of ``treedef`` (from
+    :func:`tree_flatten` of another tree), in the same order: the leaves of
+    a tree whose own leaves may be tuples, such as a tree of layout specs
+    beside the tensors they lay out."""
+    out: List[Any] = []
+    _up_to(treedef, tree, out)
+    return out
 
 
 def tree_leaves(tree: PyTree) -> List[Any]:
