@@ -401,10 +401,14 @@ STEP_LEAF_GRAD_TOL = 1e-3
 #: update is compared where |g| > 100 eps (the first step within 1% of
 #: sign-like) and |g| > 100 times the gradient tree's largest gap
 STEP_ADAM_EPS = 1e-8
-#: swa_decode_attention at the three decode_32k shapes of the path (bf16):
-#: (B, S, H, KV, D); ssd_scan and rglru_scan at the 32,768-token prefill
+#: swa_decode_attention at the three decode_32k shapes of the path and at
+#: long_500k's (h2o-danube-1.8b's 4096-slot window at batch 1), bf16: (B,
+#: S, H, KV, D); ssd_scan and rglru_scan at the 32,768-token prefill
 STEP_SWA_SHAPES = [(128, 2048, 10, 1, 256), (128, 4096, 32, 8, 80),
-                   (128, 32768, 48, 1, 128)]
+                   (128, 32768, 48, 1, 128), (1, 4096, 32, 8, 80)]
+#: the decode kernels' names in a profiler trace (both designs and the
+#: merge), for swa's share of a decode step's busy time
+SWA_KERNEL_RE = r"swa_(tc|partial|merge)\b"
 STEP_SSD_SHAPE = (1, 32768, 64, 64, 1, 128, 256, False)
 STEP_RGLRU_SHAPE = (1, 32768, 2560)
 #: bf16 outputs of the decode kernel at the decode_32k shapes against the
@@ -988,10 +992,12 @@ def swa_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
                 torch.randn(b, s, kv, d, device=dev, generator=g),
                 torch.randn(b, s, kv, d, device=dev, generator=g), vl)
     q, k, v, _ = make()
-    out = swa_attn.swa_decode_attention(q, k, v, vl, cap)
+    out, design, plan = swa_design_call(swa_attn, q, k, v, vl, cap)
     ref = swa_attn.swa_decode_plain(q, k, v, vl, cap)
     err = float((out - ref).abs().max())
     tag = {"shape": [b, s, h, kv, d], "softcap": cap, "valid_len": list(lens)}
+    check(design == "pieces", f"swa_decode_attention {tag}: f32 ran the "
+                              f"{design} design")
     check(err <= SWA_ATOL, f"swa_decode_attention {tag}: max abs err {err}")
     check(torch.equal(out, swa_attn.swa_decode_attention(q, k, v, vl, cap)),
           f"swa_decode_attention {tag} not repeatable")
@@ -1014,11 +1020,25 @@ def swa_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
         lib = device_ms(sdpa)
     bms, by = bound_ms(nbytes, valid * h * (4 * d + 5))
     return {"phase": "kernel", "name": "swa_decode_attention", **tag,
+            "design": design, "plan": plan,
             "max_abs_err": err, "atol": SWA_ATOL, "ms": rot,
             "ms_l2": kt["device"], "plain_ms": plain, "bound_ms": bms,
             "bound_by": by, "gb_per_s": nbytes / rot / 1e6,
             "library_ms": lib, "library_max_abs_err": lib_err,
             "call_ms": kt["call"]}
+
+
+def swa_design_call(swa_attn, q, k, v, vl, cap):
+    """One swa_decode_attention call: its output, the design that ran, read
+    from the tensor-core design's launch count ("tc" or "pieces"), and the
+    launch shape ``launch_plan`` gives that design."""
+    tc = swa_attn.swa_decode_attention.launches_tc
+    out = swa_attn.swa_decode_attention(q, k, v, vl, cap)
+    ran = swa_attn.swa_decode_attention.launches_tc - tc
+    b, s, kv = k.shape[0], k.shape[1], k.shape[2]
+    plan = swa_attn.launch_plan(q.dtype, b, kv, s,
+                                swa_attn.build.sm_count(q.device))
+    return out, "tc" if ran else "pieces", list(plan)
 
 
 def phase_arch_kernels(torch, rglru, swa_attn) -> dict:
@@ -1920,18 +1940,26 @@ def expected_step_launches(cfg, kind: str) -> dict:
             "swa_decode_attention": kinds.count("attn")}
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, match: str = None):
     """``fn()`` under torch.profiler, ending in a device wait: its result,
-    its host seconds and ``device_summary``. Device activity only: a train
-    step launches ~10^5 kernels, and host op events would double what the
-    summary reads back."""
+    its host seconds and ``device_summary``, with ``match_ms``, the device
+    ms of the kernels whose names match the regex ``match``, where one is
+    given. Device activity only: a train step launches ~10^5 kernels, and
+    host op events would double what the summary reads back."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return out, wall, device_summary(prof, wall)
+    summary = device_summary(prof, wall)
+    if match is not None:
+        summary["match_ms"] = sum(
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and re.search(match, e.name)) / 1e3
+    return out, wall, summary
 
 
 def _fresh(torch, label: str) -> None:
@@ -2146,8 +2174,10 @@ def step_decode_run(torch, shape_name: str, arch: str, layers, batch: int,
     arch's ring, long_500k's sliding-window variant, or decode_32k's full
     32,768 slots) filled from a seed, index seq_len - 1 (the ring full),
     then ``STEP_DECODE_TIMED`` steps timed and one under torch.profiler:
-    the decode kernel once per attention layer per step, tokens in the
-    vocabulary, the new cache finite where it was written."""
+    the decode kernel once per attention layer per step, in its bf16
+    (tensor-core) design where the cache is bf16, tokens in the vocabulary,
+    the new cache finite where it was written; swa's device ms and share
+    of the profiled step's busy time."""
     from repro_torch.launch import steps
     from repro_torch.models import model as M
     from repro_torch.utils import pytree as pt
@@ -2170,18 +2200,25 @@ def step_decode_run(torch, shape_name: str, arch: str, layers, batch: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
+    swa = kernels["swa_decode_attention"]
+    tc0 = swa.launches_tc
     tok, cache = step(params, cache, tok, index)
     torch.cuda.synchronize()
     counts = _scan_launches(kernels)
+    tc = swa.launches_tc - tc0
     check(counts == expected_step_launches(cfg, "decode"),
           f"{label}: launches {counts}")
+    n_swa = counts["swa_decode_attention"]
+    check(tc == (n_swa if cfg.dtype == "bfloat16" else 0),
+          f"{label}: {tc} of {n_swa} decode launches in the bf16 design, "
+          f"cache {cfg.dtype}")
     t0 = time.perf_counter()
     for _ in range(STEP_DECODE_TIMED):
         tok, cache = step(params, cache, tok, index)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / STEP_DECODE_TIMED
     (tok, cache), prof_wall, summary = _profiled(
-        torch, lambda: step(params, cache, tok, index))
+        torch, lambda: step(params, cache, tok, index), SWA_KERNEL_RE)
     peak = torch.cuda.max_memory_allocated()
     check(0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size,
           f"{label}: tokens")
@@ -2199,8 +2236,13 @@ def step_decode_run(torch, shape_name: str, arch: str, layers, batch: int,
            "cache_gib": _tree_bytes(pt, cache) / 2 ** 30,
            "step_ms": step_ms, "profiled_step_ms": 1e3 * prof_wall,
            "peak_gib": peak / 2 ** 30, "launches_per_step": counts,
+           "swa_design": (None if not n_swa else "tc" if tc else "pieces"),
            "device_idle_share": summary["device_idle_share"],
            "device_busy_s": summary["device_busy_s"],
+           "swa_device_ms": summary["match_ms"],
+           "swa_share_of_busy": (summary["match_ms"] / 1e3
+                                 / summary["device_busy_s"]
+                                 if summary["device_busy_s"] else None),
            "top": summary["top"][:5]}
     emit(row)
     _add(launches, counts)
@@ -2363,11 +2405,14 @@ def swa_step_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
     plain = lambda: torch.cat([swa_attn.swa_decode_plain(
         q[i], k[i], v[i], vl[i], cap) for i in sl])
     fn = lambda: swa_attn.swa_decode_attention(q, k, v, vl, cap)
-    out, ref = fn(), plain()
+    out, design, plan = swa_design_call(swa_attn, q, k, v, vl, cap)
+    ref = plain()
     err = float((out.float() - ref.float()).abs().max())
     top = float(ref.float().abs().max())
     tag = {"shape": [b, s, h, kv, d], "dtype": "bfloat16", "softcap": cap,
            "valid_len": s}
+    check(design == "tc", f"swa_decode_attention {tag}: bf16 ran the "
+                          f"{design} design")
     check(err <= SWA_BF16_RTOL * top,
           f"swa_decode_attention {tag}: err {err}, max |ref| {top}")
     check(torch.equal(out, fn()), f"swa_decode_attention {tag} not "
@@ -2385,7 +2430,8 @@ def swa_step_row(torch, swa_attn, b: int, s: int, h: int, kv: int, d: int,
     nbytes = 2 * 2 * b * h * d + 2 * 2 * b * s * kv * d
     bms, by = bound_ms(nbytes, b * s * h * (4 * d + 5), BF16_FLOPS_PER_S)
     row = {"phase": "kernel", "name": "swa_decode_attention", **tag,
-           "path": "steps decode", "max_abs_err": err, "max_abs_ref": top,
+           "path": "steps decode", "design": design, "plan": plan,
+           "max_abs_err": err, "max_abs_ref": top,
            "rtol": SWA_BF16_RTOL, "limit": SWA_BF16_RTOL * top,
            "ms": kt["device"], "call_ms": kt["call"],
            "plain_ms": plain_ms, "plain_batch_slice": chunk,

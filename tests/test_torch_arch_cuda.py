@@ -143,12 +143,23 @@ def test_rglru_stream_edges(shape, dtype, with_h0):
 def test_swa_matches_plain(shape, dtype):
     """The serve shapes (2048 and 48 slots), a GQA map with a softcap, D of
     4, 64, 68, 80, 128 and 256, H / KV from 1 to 48 (granite-34b's MQA:
-    three groups of 16 heads over one piece; 24 and 17: a last group of 8
-    and of 1; qwen3-moe-30b-a3b's 32 on 4), a cache shorter than one piece
-    and one that no piece divides; valid lengths of S, 0, 1, exactly one
-    piece, one past a piece and a ragged set. In bf16, D = 4 and 68 take
-    the 8-byte copies (rows not a multiple of 16 bytes), the others the
-    16-byte ones."""
+    three groups of 16 heads over one piece, three m-tiles in bf16; 24 and
+    17: a last group of 8 and of 1; qwen3-moe-30b-a3b's 32 on 4), a cache
+    shorter than one piece and one that no piece divides; valid lengths of
+    S, 0, 1, exactly one piece (a tile in bf16), one past it and a ragged
+    set. f32 runs the pieces design, bf16 the tensor-core one: D = 4 and 68
+    take its 8-byte copies (rows not a multiple of 16 bytes) and a head dim
+    zero-padded to 16 and 80, the others the 16-byte ones."""
+    swa_cases(shape, dtype)
+
+
+def swa_cases(shape, dtype):
+    """swa_decode_attention at ``shape`` = (B, S, H, KV, D, softcap) in
+    ``dtype`` against its plain version, at valid lengths of S, 0, 1, one
+    piece or tile, one past it (and, in bf16, one split and one past it
+    where a split is longer) and a ragged set: within 1e-5 in f32 and 8e-3
+    in bf16, the same bits on a second call, each call counted once, and in
+    bf16 by the tensor-core design."""
     b, s, h, kv, d, cap = shape
     g = gen(s)
     q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
@@ -156,12 +167,17 @@ def test_swa_matches_plain(shape, dtype):
     v = torch.randn(b, s, kv, d, device="cuda", generator=g).to(dtype)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
     swa_attn.swa_decode_attention.launches = 0
-    piece = swa_attn.piece_slots(s, b * kv,
-                                 build.sm_count(torch.device("cuda:0")))
+    swa_attn.swa_decode_attention.launches_tc = 0
+    plan = swa_attn.launch_plan(dtype, b, kv, s,
+                                build.sm_count(torch.device("cuda:0")))
+    piece = swa_attn.TC_GRAIN if plan[0] == "tc" else plan[1]
+    edges = [piece] + ([plan[2]] if plan[0] == "tc" and plan[2] != piece
+                       and plan[2] < s else [])
     full = lambda n: torch.full((b,), n, dtype=torch.int32, device="cuda")
-    lens = [full(s), full(0), full(1), full(piece), full(piece + 1),
-            torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
-            * max(1, s // (b + 1))]
+    lens = ([full(s), full(0), full(1)]
+            + [full(n + e) for n in edges for e in (0, 1)]
+            + [torch.arange(1, b + 1, dtype=torch.int32, device="cuda")
+               * max(1, s // (b + 1))])
     for vl in lens:
         out = swa_attn.swa_decode_attention(q, k, v, vl, cap)
         ref = swa_attn.swa_decode_plain(q, k, v, vl, cap)
@@ -170,6 +186,24 @@ def test_swa_matches_plain(shape, dtype):
         assert torch.equal(out, swa_attn.swa_decode_attention(q, k, v, vl,
                                                               cap))
     assert swa_attn.swa_decode_attention.launches == 2 * len(lens)
+    assert swa_attn.swa_decode_attention.launches_tc == (
+        2 * len(lens) if dtype == torch.bfloat16 else 0)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(128, 256, 10, 1, 256, 0.0),
+                                   (64, 512, 32, 8, 80, 0.0),
+                                   (128, 300, 48, 1, 128, 0.0),
+                                   (64, 512, 32, 8, 80, 30.0)])
+def test_swa_bf16_decode_geometries(shape):
+    """The tensor-core design at the step programs' decode_32k geometries
+    with a shorter cache, one split each on an H100 (the block writes the
+    output): recurrentgemma-2b (10 heads on 1, D 256), h2o-danube-1.8b (32
+    on 8, D 80) with and without a softcap of 30, and granite-34b (48 on 1,
+    D 128: three m-tiles over each K tile; a cache that no tile divides).
+    The merge of splits runs at the smaller shapes of
+    ``test_swa_matches_plain``."""
+    swa_cases(shape, torch.bfloat16)
 
 
 @requires_cuda
@@ -194,10 +228,11 @@ def test_swa_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_swa_on_every_card(dtype):
-    """The partial kernels' shared-memory attribute is per device: a decode
-    whose pieces take more than the default 48 KB (64-slot pieces of
-    D = 256) launches on every card, not only on the one that loaded the
-    library, and gives the first card's bits."""
+    """The kernels' shared-memory attribute is per device: a decode whose
+    pieces (f32: 64-slot pieces of D = 256) or ring (bf16: the tensor-core
+    design's stages of 64 slots of D = 256, 211 KB) take more than the
+    default 48 KB launches on every card, not only on the one that loaded
+    the library, and gives the first card's bits."""
     outs = []
     for i in range(torch.cuda.device_count()):
         dev = torch.device("cuda", i)
@@ -207,8 +242,11 @@ def test_swa_on_every_card(dtype):
         v = torch.randn(1, 2048, 1, 256, device=dev, generator=g).to(dtype)
         vl = torch.full((1,), 2048, dtype=torch.int32, device=dev)
         assert swa_attn.piece_slots(2048, 1, build.sm_count(dev)) == 64
+        tc = swa_attn.swa_decode_attention.launches_tc
         with torch.cuda.device(dev):
             out = swa_attn.swa_decode_attention(q, k, v, vl)
+        assert (swa_attn.swa_decode_attention.launches_tc - tc
+                == (dtype == torch.bfloat16))
         ref = swa_attn.swa_decode_plain(q, k, v, vl)
         tol = 1e-5 if dtype == torch.float32 else 8e-3
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,

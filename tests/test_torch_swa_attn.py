@@ -29,8 +29,10 @@ from repro_torch.models import layers as L
 @pytest.fixture(autouse=True)
 def no_launches():
     swa_attn.swa_decode_attention.launches = 0
+    swa_attn.swa_decode_attention.launches_tc = 0
     yield
     assert swa_attn.swa_decode_attention.launches == 0
+    assert swa_attn.swa_decode_attention.launches_tc == 0
 
 
 def inputs(b, s, h, kv, d, dtype="float32", seed=0):
@@ -174,3 +176,38 @@ def test_piece_slots(s, groups, sms, split):
     assert got & (got - 1) == 0
     want = -(-sms // groups)
     assert got == swa_attn.MAX_SPLIT or -(-s // got) <= want
+
+
+@pytest.mark.parametrize("b,kv,s,sms,plan", [
+    (128, 1, 2048, 132, (1, 2048)),    # decode_32k: recurrentgemma-2b
+    (128, 8, 4096, 132, (1, 4096)),    # h2o-danube-1.8b
+    (128, 1, 32768, 132, (1, 32768)),  # granite-34b
+    (1, 8, 4096, 132, (16, 256)),      # long_500k: h2o-danube-1.8b
+    (4, 1, 2048, 132, (32, 64)),       # the batch-4 serve shape
+    (128, 1, 2048, 16, (1, 2048)),
+    (128, 8, 4096, 16, (1, 4096)),
+    (128, 1, 32768, 16, (1, 32768)),
+    (1, 8, 4096, 16, (2, 2048)),
+    (4, 1, 2048, 16, (4, 512))])
+def test_tc_plan(b, kv, s, sms, plan):
+    """The bf16 kernel's launch shape: (splits, slots per split), each
+    split a whole number of TC_GRAIN slots covering the cache; one split
+    where the (b, kv head) pairs fill more than half the card, and never
+    more blocks than SMs."""
+    got = swa_attn.tc_plan(b, kv, s, sms)
+    assert got == plan
+    splits, chunk = got
+    assert chunk % swa_attn.TC_GRAIN == 0 and splits == -(-s // chunk)
+    assert splits == 1 or (2 * b * kv <= sms and splits * b * kv <= sms)
+
+
+@pytest.mark.parametrize("b,s,kv", [(128, 2048, 1), (4, 2048, 1),
+                                    (1, 4096, 8), (2, 48, 4)])
+def test_dtype_chooses_the_design(b, s, kv):
+    """bf16 calls take the tensor-core design with tc_plan's shape, f32
+    calls the pieces design with piece_slots' (the f32 path as it was)."""
+    for sms in (132, 16):
+        assert (swa_attn.launch_plan(torch.bfloat16, b, kv, s, sms)
+                == ("tc", *swa_attn.tc_plan(b, kv, s, sms)))
+        assert (swa_attn.launch_plan(torch.float32, b, kv, s, sms)
+                == ("pieces", swa_attn.piece_slots(s, b * kv, sms)))
