@@ -24,6 +24,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import compression, tasks
 from repro_torch.core.server import ClientUpdate
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import tracing
 from repro_torch.utils.device import resolve_device
 
 PyTree = Any
@@ -69,9 +70,10 @@ def _local_k_steps(task, params: PyTree, mu_state: PyTree, xs, ys, lr: float,
     Returns (delta, new_momentum, mean_loss)."""
     carry, losses = (params, mu_state), []
     for k in range(ys.shape[0]):
-        bx = pt.tree_map(lambda a: a[k], xs)
-        carry, loss = local_sgd_step(task, carry, bx, ys[k], lr, beta,
-                                     prox_mu, params)
+        with tracing.span("client.step", rows=1):
+            bx = pt.tree_map(lambda a: a[k], xs)
+            carry, loss = local_sgd_step(task, carry, bx, ys[k], lr, beta,
+                                         prox_mu, params)
         losses.append(loss)
     new_params, new_mu = carry
     return pt.tree_sub(new_params, params), new_mu, torch.stack(losses).mean()
@@ -123,15 +125,18 @@ class Client:
         """K local steps -> (ClientUpdate, mean local loss)."""
         if self._mu is None:
             self._mu = pt.tree_zeros_like(params)
-        bx, by = self.task.to_device(self.batcher.next_stacked(k),
-                                     self.device)
+        with tracing.span("client.stage"):
+            bx, by = self.task.to_device(self.batcher.next_stacked(k),
+                                         self.device)
         delta, self._mu, loss = _local_k_steps(
             self.task, params, self._mu, bx, by, self._lr(),
             beta=self.fed.local_momentum, prox_mu=prox_mu)
-        self.round_idx += 1
-        upd = ClientUpdate(self.client_id, snapshot_iter, k, delta,
-                           self.num_samples)
-        return upd, float(loss)
+        tracing.count("client.steps", k)
+        with tracing.span("client.collect"):
+            self.round_idx += 1
+            upd = ClientUpdate(self.client_id, snapshot_iter, k, delta,
+                               self.num_samples)
+            return upd, float(loss)
 
     def compress_update(self, upd: ClientUpdate) -> ClientUpdate:
         """Put an outgoing update in wire form per ``fed.delta_compression``,

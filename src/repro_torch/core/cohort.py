@@ -73,6 +73,7 @@ from repro_torch.core.server import ClientUpdate
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.sharding import specs
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import tracing
 
 PyTree = Any
 
@@ -116,15 +117,16 @@ def _steps(task, p0: PyTree, mu: PyTree, xs, ys, lrs: torch.Tensor,
     p, m = p0, mu
     loss_sum = torch.zeros(lrs.shape, dtype=torch.float32, device=lrs.device)
     for k in range(ys.shape[1]):
-        p2, m2, loss = step(p, m, pt.tree_map(lambda a: a[:, k], xs),
-                            ys[:, k], lrs, p0)
-        if mask is None:
-            p, m = p2, m2
-            loss_sum = loss_sum + loss
-        else:
-            keep = mask[:, k] > 0
-            p, m = _where(keep, p2, p), _where(keep, m2, m)
-            loss_sum = loss_sum + loss * mask[:, k]
+        with tracing.span("client.step", rows=lrs.shape[0]):
+            p2, m2, loss = step(p, m, pt.tree_map(lambda a: a[:, k], xs),
+                                ys[:, k], lrs, p0)
+            if mask is None:
+                p, m = p2, m2
+                loss_sum = loss_sum + loss
+            else:
+                keep = mask[:, k] > 0
+                p, m = _where(keep, p2, p), _where(keep, m2, m)
+                loss_sum = loss_sum + loss * mask[:, k]
     return pt.tree_sub(p, p0), m, loss_sum
 
 
@@ -190,8 +192,9 @@ def _run_pod(task, fed, dev: torch.device, p, mu, xs, ys, lrs, mask,
     loss_sum = torch.zeros(lrs.shape, dtype=torch.float32, device=dev)
     for s0 in range(0, k_pad, seg):
         s1 = min(s0 + seg, k_pad)
-        bx, by = task.to_device((pt.tree_map(lambda a: a[:, s0:s1], xs),
-                                 ys[:, s0:s1]), dev)
+        with tracing.span("client.stage"):
+            bx, by = task.to_device((pt.tree_map(lambda a: a[:, s0:s1], xs),
+                                     ys[:, s0:s1]), dev)
         d, mu, l_seg = _steps(task, p, mu, bx, by, lrs,
                               None if mask is None else mask[:, s0:s1],
                               fed.local_momentum, prox_mu)
@@ -228,35 +231,36 @@ def _run_chunk(task, fed, engine: str, p_src, mus, lrs_list, x_rows,
     uniform = len(set(ks)) == 1
     k_pad = ks[0] if uniform else bucket_size(max(ks))
 
-    # batches: stacked on the host, moved to the device one segment at a
-    # time; padded client rows repeat row 0's batches with lr 0
-    xs = _np_stack([_pad_steps(x, k_pad) for x in x_rows]
-                   + [_pad_steps(x_rows[0], k_pad)] * (c_pad - c_real))
-    ys = _np_stack([_pad_steps(y, k_pad) for y in y_rows]
-                   + [_pad_steps(y_rows[0], k_pad)] * (c_pad - c_real))
-    lrs = torch.zeros((c_pad,), dtype=torch.float32)
-    lrs[:c_real] = torch.tensor(lrs_list, dtype=torch.float32)
-    lrs = lrs.to(device)
-    mask = counts = None
-    if not uniform:
-        mask_np = np.zeros((c_pad, k_pad), np.float32)
-        for i, k in enumerate(ks):
-            mask_np[i, :k] = 1.0
-        mask = torch.from_numpy(mask_np).to(device)
-        counts = np.maximum(mask_np.sum(axis=1), 1.0)
-    zeros_mu = pt.tree_zeros_like(template)
-    mu = pt.tree_map(lambda *rows: torch.stack(rows),
-                     *(list(mus) + [zeros_mu] * (c_pad - c_real)))
-    if isinstance(p_src, list):
-        p = pt.tree_map(lambda *rows: torch.stack(rows),
-                        *(p_src + [template] * (c_pad - c_real)))
-    else:                        # a shared snapshot: a view, not C copies
-        p = pt.tree_map(lambda t: t.expand(c_pad, *t.shape), p_src)
-    res = None
-    if wire is not None:
-        res_rows = list(wire[1])
-        res = torch.stack(res_rows + [torch.zeros_like(res_rows[0])]
-                          * (c_pad - c_real))
+    with tracing.span("client.stage"):
+        # batches: stacked on the host, moved to the device one segment at a
+        # time; padded client rows repeat row 0's batches with lr 0
+        xs = _np_stack([_pad_steps(x, k_pad) for x in x_rows]
+                       + [_pad_steps(x_rows[0], k_pad)] * (c_pad - c_real))
+        ys = _np_stack([_pad_steps(y, k_pad) for y in y_rows]
+                       + [_pad_steps(y_rows[0], k_pad)] * (c_pad - c_real))
+        lrs = torch.zeros((c_pad,), dtype=torch.float32)
+        lrs[:c_real] = torch.tensor(lrs_list, dtype=torch.float32)
+        lrs = lrs.to(device)
+        mask = counts = None
+        if not uniform:
+            mask_np = np.zeros((c_pad, k_pad), np.float32)
+            for i, k in enumerate(ks):
+                mask_np[i, :k] = 1.0
+            mask = torch.from_numpy(mask_np).to(device)
+            counts = np.maximum(mask_np.sum(axis=1), 1.0)
+        zeros_mu = pt.tree_zeros_like(template)
+        mu = pt.tree_map(lambda *rows: torch.stack(rows),
+                         *(list(mus) + [zeros_mu] * (c_pad - c_real)))
+        if isinstance(p_src, list):
+            p = pt.tree_map(lambda *rows: torch.stack(rows),
+                            *(p_src + [template] * (c_pad - c_real)))
+        else:                    # a shared snapshot: a view, not C copies
+            p = pt.tree_map(lambda t: t.expand(c_pad, *t.shape), p_src)
+        res = None
+        if wire is not None:
+            res_rows = list(wire[1])
+            res = torch.stack(res_rows + [torch.zeros_like(res_rows[0])]
+                              * (c_pad - c_real))
 
     seg = k_pad if k_chunk is None or k_chunk >= k_pad else k_chunk
     # the FedProx anchor would differ per segment, so the planner never
@@ -281,9 +285,11 @@ def _run_chunk(task, fed, engine: str, p_src, mus, lrs_list, x_rows,
     deltas = _gather_rows([o[0] for o in outs], device)
     new_mu = _gather_rows([o[1] for o in outs], device)
     loss_sum = _gather_rows([o[2] for o in outs], device)
-    sums = loss_sum.cpu().numpy().astype(np.float64)
-    losses = sums / (float(k_pad) if uniform else counts)
-    losses = [float(x) for x in losses]
+    tracing.count("client.steps", sum(ks))
+    with tracing.span("client.collect"):
+        sums = loss_sum.cpu().numpy().astype(np.float64)
+        losses = sums / (float(k_pad) if uniform else counts)
+        losses = [float(x) for x in losses]
     if wire is not None:
         return None, new_mu, losses, deltas
     return deltas, new_mu, losses, None
@@ -328,13 +334,14 @@ def run_cohort(task, clients: Sequence,
     # every client is staged up front, in client order: the batcher draws
     # are the same under every plan, so no plan can fork an RNG stream
     mus, lrs_list, x_rows, y_rows = [], [], [], []
-    for c, k in zip(clients, ks):
-        mu, lr = c.stage_cohort(template)
-        bx, by = c.batcher.next_stacked(k)
-        mus.append(mu)
-        lrs_list.append(lr)
-        x_rows.append(bx)
-        y_rows.append(by)
+    with tracing.span("client.stage"):
+        for c, k in zip(clients, ks):
+            mu, lr = c.stage_cohort(template)
+            bx, by = c.batcher.next_stacked(k)
+            mus.append(mu)
+            lrs_list.append(lr)
+            x_rows.append(bx)
+            y_rows.append(by)
 
     fed = clients[0].fed
     width = c_real
@@ -360,25 +367,28 @@ def run_cohort(task, clients: Sequence,
             task, fed, engine, p_src, mus[lo:hi], lrs_list[lo:hi],
             x_rows[lo:hi], y_rows[lo:hi], ks[lo:hi], prox_mu, template,
             k_chunk, None if res_spec is None else (mode, res_rows[lo:hi]))
-        for i in range(hi - lo):
-            if wire_out is not None:
-                q, scales, new_res = wire_out
-                delta_rows.append(compression.CompressedDelta(
-                    mode, q[i], None if scales is None else scales[i],
-                    res_spec.n))
-                res_commits.append(new_res[i])
-            else:
-                delta_rows.append(pt.tree_map(lambda t: t[i], deltas))
-            mu_rows.append(pt.tree_map(lambda t: t[i], new_mu))
-            loss_rows.append(losses[i])
+        with tracing.span("client.collect"):
+            for i in range(hi - lo):
+                if wire_out is not None:
+                    q, scales, new_res = wire_out
+                    delta_rows.append(compression.CompressedDelta(
+                        mode, q[i], None if scales is None else scales[i],
+                        res_spec.n))
+                    res_commits.append(new_res[i])
+                else:
+                    delta_rows.append(pt.tree_map(lambda t: t[i], deltas))
+                mu_rows.append(pt.tree_map(lambda t: t[i], new_mu))
+                loss_rows.append(losses[i])
 
     out: List[Tuple[ClientUpdate, float]] = []
-    for i, (c, k, it) in enumerate(zip(clients, ks, snapshot_iters)):
-        c.commit_cohort(mu_rows[i])
-        if res_spec is not None:
-            # a row of its own on the client's device: a view would keep
-            # the fan-out's whole stacked residual alive
-            c.commit_residual(res_commits[i].to(c.device, copy=True))
-        upd = ClientUpdate(c.client_id, it, k, delta_rows[i], c.num_samples)
-        out.append((upd, loss_rows[i]))
+    with tracing.span("client.collect"):
+        for i, (c, k, it) in enumerate(zip(clients, ks, snapshot_iters)):
+            c.commit_cohort(mu_rows[i])
+            if res_spec is not None:
+                # a row of its own on the client's device: a view would
+                # keep the fan-out's whole stacked residual alive
+                c.commit_residual(res_commits[i].to(c.device, copy=True))
+            upd = ClientUpdate(c.client_id, it, k, delta_rows[i],
+                               c.num_samples)
+            out.append((upd, loss_rows[i]))
     return out

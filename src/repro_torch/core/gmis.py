@@ -27,6 +27,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import tracing
 
 PyTree = Any
 
@@ -43,7 +44,9 @@ class RingGMIS:
             self._store.popitem(last=False)
 
     def get(self, iteration: int) -> Tuple[PyTree, int]:
-        """Returns (params, actual_iteration) — clamped to oldest retained."""
+        """Returns (params, actual_iteration) — clamped to oldest retained.
+        Counts ``gmis.lookups``, and ``gmis.clamps`` when clamped."""
+        tracing.count("gmis.lookups")
         if iteration in self._store:
             return self._store[iteration], iteration
         if not self._store:
@@ -52,6 +55,7 @@ class RingGMIS:
                 "has been appended yet — seed the ring with the initial "
                 "params (append(t, params)) before serving lookups")
         oldest = next(iter(self._store))
+        tracing.count("gmis.clamps")
         return self._store[oldest], oldest
 
     def register_snapshot(self, client_id, iteration: int) -> None:

@@ -33,6 +33,7 @@ from repro_torch.kernels.fedagg import fedagg, ops, sharded
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.sharding import specs
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import tracing
 
 PyTree = Any
 
@@ -41,6 +42,17 @@ PyTree = Any
 _AGG_OPS = ("flat_aggregate", "flat_aggregate_displacement",
             "flat_aggregate_q", "flat_aggregate_displacement_q",
             "flat_aggregate_batched", "flat_aggregate_batched_q")
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor the flat server allocated and filled to stage a
+    drain's operands (or a tuple of its shards), counted in
+    ``server.copy_bytes``."""
+    if tracing.active():
+        tracing.count("server.copy_bytes", sum(
+            s.numel() * s.element_size()
+            for s in (t if isinstance(t, tuple) else (t,))))
+    return t
 
 
 @dataclasses.dataclass
@@ -333,12 +345,25 @@ class AsyncFedEDServer(AsyncServer):
         n_pad = self._flat.spec.n_padded
         if cd.q.shape[0] == n_pad:
             return cd.q, cd.scales
-        q = torch.nn.functional.pad(cd.q, (0, n_pad - cd.q.shape[0]))
+        q = _staged(torch.nn.functional.pad(cd.q,
+                                            (0, n_pad - cd.q.shape[0])))
         scales = cd.scales
         if scales is not None:
-            scales = torch.nn.functional.pad(
-                scales, (0, n_pad // fedagg.QBLOCK - scales.shape[0]))
+            scales = _staged(torch.nn.functional.pad(
+                scales, (0, n_pad // fedagg.QBLOCK - scales.shape[0])))
         return q, scales
+
+    def _flat_delta(self, delta: PyTree) -> torch.Tensor:
+        """A delta tree flattened to the server's padded length; what its
+        casts, concatenation and padding fill counts in
+        ``server.copy_bytes``."""
+        spec = self._flat.spec
+        if tracing.active():
+            cast = sum(4 * n for n, dt in zip(spec.sizes, spec.dtypes)
+                       if dt != torch.float32)
+            tracing.count("server.copy_bytes", cast + 4 * spec.n + (
+                4 * spec.n_padded if spec.n_padded != spec.n else 0))
+        return spec.flatten(delta)
 
     def _split_scales(self, scales: torch.Tensor):
         """int8 scales (or a stack of them) in the server's layout: beside
@@ -377,7 +402,7 @@ class AsyncFedEDServer(AsyncServer):
             return gamma, eta, dist, dnorm, d
         # a bf16 payload rides the f32 kernels (upcast on load)
         d = self._split(self._wire_padded(cd)[0] if cd is not None
-                        else self._flat.spec.flatten(upd.delta))
+                        else self._flat_delta(upd.delta))
         if disp:
             new_vec, gamma, eta, dist, dnorm = self._agg[
                 "flat_aggregate_displacement"](
@@ -408,6 +433,10 @@ class AsyncFedEDServer(AsyncServer):
         return ServerReply(self.params, self.t, k_next)
 
     def on_update(self, upd: ClientUpdate) -> ServerReply:
+        with tracing.span("server.update"):
+            return self._update(upd)
+
+    def _update(self, upd: ClientUpdate) -> ServerReply:
         upd2, verdict, scale, raw_norm = self._screen_delta(upd)
         if upd2 is None:
             return self._reject_reply(upd, raw_norm)
@@ -445,9 +474,13 @@ class AsyncFedEDServer(AsyncServer):
         through the int8 twins of the batched sweeps."""
         modes = {u.delta.mode if compression.is_compressed(u.delta)
                  else "off" for u in upds}
-        if (self.backend != "pallas" or self.gmis_mode != "ring"
-                or len(upds) == 1 or len(modes) > 1
-                or getattr(self.screen, "needs_vector", False)):
+        batched = (self.backend == "pallas" and self.gmis_mode == "ring"
+                   and len(upds) > 1 and len(modes) == 1
+                   and not getattr(self.screen, "needs_vector", False))
+        with tracing.span("server.drain", updates=len(upds),
+                          path="batched" if batched else "single"):
+            if batched:
+                return self._drain_batched(upds, modes.pop())
             replies = [self.on_update(u) for u in upds]
             if len(replies) > 1:
                 # every drained client resumes from the window's final
@@ -458,38 +491,54 @@ class AsyncFedEDServer(AsyncServer):
                 replies = [ServerReply(self.params, self.t, r.k_next)
                            for r in replies]
             return replies
+
+    def _drain_batched(self, upds: List[ClientUpdate],
+                       mode: str) -> List[ServerReply]:
+        """:meth:`on_update_batch` through the batched sweeps, for a burst
+        of one wire form ``mode``."""
         fed = self.fed
-        mode = modes.pop()
-        snaps = [self.gmis.get(u.snapshot_iter)[0] for u in upds]
-        # a sharded server stacks each shard's snapshots on its own device
-        stales = (torch.stack(snaps) if self._mesh is None else
-                  tuple(torch.stack(rows) for rows in zip(*snaps)))
+        with tracing.span("server.stack"):
+            snaps = [self.gmis.get(u.snapshot_iter)[0] for u in upds]
+            # a sharded server stacks each shard's snapshots on its own
+            # device
+            stales = _staged(
+                torch.stack(snaps) if self._mesh is None else
+                tuple(torch.stack(rows) for rows in zip(*snaps)))
         # the kernel-emitted raw norms feed the screen in arrival order;
         # its scale factors fold into the schedule
         screen_fn = (None if self.screen is None else
                      lambda dns: self.screen.decide_batch(
                          dns, [u.client_id for u in upds]))
         if mode == "int8":
-            wires = [self._wire_padded(u.delta) for u in upds]
+            with tracing.span("server.flatten"):
+                wires = [self._wire_padded(u.delta) for u in upds]
+                qs = _staged(torch.stack([q for q, _ in wires]))
+                qscales = _staged(torch.stack([s for _, s in wires]))
             new_vec, etas, gammas, dists, dnorms, scales = (
                 self._agg["flat_aggregate_batched_q"](
-                    self._flat.vec, stales,
-                    self._split(torch.stack([q for q, _ in wires])),
-                    self._split_scales(torch.stack([s for _, s in wires])),
-                    lam=fed.lam, eps=fed.eps, cap=fed.staleness_cap,
-                    screen=screen_fn))
+                    self._flat.vec, stales, self._split(qs),
+                    self._split_scales(qscales), lam=fed.lam, eps=fed.eps,
+                    cap=fed.staleness_cap, screen=screen_fn))
         else:
             # "off" flattens trees; "bf16" stacks the payloads, which ride
             # the f32 kernels
-            deltas = torch.stack([self._wire_padded(u.delta)[0]
-                                  if mode == "bf16"
-                                  else self._flat.spec.flatten(u.delta)
-                                  for u in upds])
+            with tracing.span("server.flatten"):
+                deltas = _staged(torch.stack([
+                    self._wire_padded(u.delta)[0] if mode == "bf16"
+                    else self._flat_delta(u.delta) for u in upds]))
             new_vec, etas, gammas, dists, dnorms, scales = (
                 self._agg["flat_aggregate_batched"](
                     self._flat.vec, stales, self._split(deltas), lam=fed.lam,
                     eps=fed.eps, cap=fed.staleness_cap, screen=screen_fn))
         self._flat = self._flat.replace(new_vec)
+        with tracing.span("server.record"):
+            return self._record_batch(upds, etas, gammas, dists, dnorms,
+                                      scales)
+
+    def _record_batch(self, upds: List[ClientUpdate], etas, gammas, dists,
+                      dnorms, scales) -> List[ServerReply]:
+        """A batched drain's history, Eq. 8, GMIS append, registrations
+        and replies."""
         k_nexts = []
         for i, upd in enumerate(upds):
             verdict = ("accept" if scales is None

@@ -52,6 +52,7 @@ from repro_torch.core.events import (CHECKIN, EventLoop, VirtualClock,
                                      make_window_controller)
 from repro_torch.core.server import ClientUpdate, ServerReply, make_server
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import tracing
 from repro_torch.utils.device import resolve_device
 
 PyTree = Any
@@ -205,10 +206,10 @@ class FederatedSimulation:
 
     # --------------------------------------------------------------- eval --
     def _eval_point(self, time: float) -> EvalPoint:
-        with torch.no_grad():
+        with tracing.span("sim.eval"), torch.no_grad():
             acc, loss = self.task.eval_metrics(self.server.params,
                                                self.eval_batch)
-        return EvalPoint(time, self.server.t, float(acc), float(loss))
+            return EvalPoint(time, self.server.t, float(acc), float(loss))
 
     def _plan_dict(self) -> Optional[dict]:
         return None if self.cohort_plan is None else self.cohort_plan.to_dict()
@@ -229,12 +230,18 @@ class FederatedSimulation:
         the fan-out to the loop when even a 2-client chunk overflows. Both
         engines draw the same batches in the same order, so the event trace
         does not depend on the engine."""
+        with tracing.span("client.fanout", clients=len(jobs)):
+            return self._train(jobs)
+
+    def _train(self, jobs: List[Tuple[Client, ServerReply]]
+               ) -> List[ClientUpdate]:
         if self.fed.client_engine in cohort.COHORT_ENGINES and len(jobs) > 1:
             ks = [r.k_next for _, r in jobs]
-            plan = budget_mod.plan_cohort(
-                self.task, self.fed, clients=len(jobs), k=max(ks),
-                param_bytes=self.model_bytes, prox_mu=self.prox_mu,
-                ragged=len(set(ks)) > 1, device=self.device)
+            with tracing.span("client.plan"):
+                plan = budget_mod.plan_cohort(
+                    self.task, self.fed, clients=len(jobs), k=max(ks),
+                    param_bytes=self.model_bytes, prox_mu=self.prox_mu,
+                    ragged=len(set(ks)) > 1, device=self.device)
             self.cohort_plan = plan
             if plan.engine != "loop":
                 # run_cohort collapses one shared snapshot object (every
@@ -256,15 +263,16 @@ class FederatedSimulation:
         emitted. Behavior draws happen after training, in job order, as in
         the reference. Returns the number of updates dispatched
         (dropped-out clients count too)."""
-        for (c, reply), upd in zip(jobs, self._run_locals(jobs)):
-            if self.adversary is not None:
-                upd = self.adversary.corrupt(upd)
-            upd = c.compress_update(upd)
-            delay = self.behavior.dispatch(c.client_id, reply.k_next, now)
-            if delay is not None:
-                loop.queue.push(now + delay, c.client_id, upd)
-            else:
-                c.release_residual()   # permanent dropout: session over
+        with tracing.span("sim.dispatch", clients=len(jobs)):
+            for (c, reply), upd in zip(jobs, self._run_locals(jobs)):
+                if self.adversary is not None:
+                    upd = self.adversary.corrupt(upd)
+                upd = c.compress_update(upd)
+                delay = self.behavior.dispatch(c.client_id, reply.k_next, now)
+                if delay is not None:
+                    loop.queue.push(now + delay, c.client_id, upd)
+                else:
+                    c.release_residual()   # permanent dropout: session over
         return len(jobs)
 
     # ---------------------------------------------------------------- run --
@@ -299,6 +307,10 @@ class FederatedSimulation:
         updates = 0
 
         def handle(now: float, batch) -> None:
+            with tracing.span("sim.drain", events=len(batch)):
+                drain(now, batch)
+
+        def drain(now: float, batch) -> None:
             nonlocal updates
             n_hist = len(self.server.history)
             replies = self.server.on_update_batch(
@@ -329,18 +341,19 @@ class FederatedSimulation:
         re-admits the index); a live dispatch marks the index in flight, so
         a check-in cannot start a second session for it."""
         pop = self._population
-        for (c, reply), upd in zip(jobs, self._run_locals(jobs)):
-            if self.adversary is not None:
-                upd = self.adversary.corrupt(upd)
-            upd = c.compress_update(upd)
-            delay = self.behavior.dispatch(c.client_id, reply.k_next, now)
-            if delay is None:
-                pop.mark_dropped(c.client_id)
-                c.release_residual()
-                self.server.on_disconnect(c.client_id)
-            else:
-                pop.mark_dispatch(c.client_id, reply.iteration)
-                loop.queue.push(now + delay, c.client_id, upd)
+        with tracing.span("sim.dispatch", clients=len(jobs)):
+            for (c, reply), upd in zip(jobs, self._run_locals(jobs)):
+                if self.adversary is not None:
+                    upd = self.adversary.corrupt(upd)
+                upd = c.compress_update(upd)
+                delay = self.behavior.dispatch(c.client_id, reply.k_next, now)
+                if delay is None:
+                    pop.mark_dropped(c.client_id)
+                    c.release_residual()
+                    self.server.on_disconnect(c.client_id)
+                else:
+                    pop.mark_dispatch(c.client_id, reply.iteration)
+                    loop.queue.push(now + delay, c.client_id, upd)
 
     def _run_population(self, max_time: float, eval_every: int) -> SimResult:
         """The population drain loop.
@@ -374,6 +387,10 @@ class FederatedSimulation:
         updates = 0
 
         def handle(now: float, batch) -> None:
+            with tracing.span("sim.drain", events=len(batch)):
+                drain(now, batch)
+
+        def drain(now: float, batch) -> None:
             nonlocal updates
             uploads = [ev for ev in batch if ev.payload is not CHECKIN]
             checkins = [ev for ev in batch if ev.payload is CHECKIN]

@@ -28,6 +28,7 @@ from repro_torch.core.aggregation import (AggregationResult, gamma_eta_from_sq,
                                           sequential_batch_schedule)
 from repro_torch.kernels.fedagg import fedagg
 from repro_torch.utils import pytree as pt
+from repro_torch.utils import tracing
 
 PyTree = Any
 _BLOCK = fedagg.BLOCK
@@ -75,7 +76,8 @@ def flat_aggregate_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
     x_t (n,), x_stales (B, n), deltas (B, n) f32 or bf16, n a BLOCK
     multiple. One norms-batched launch; one copy of its four outputs,
     packed in one buffer, to the host; the schedule in f64 on the host;
-    one copy of the etas back; one apply-batched launch. Returns (new_vec,
+    one copy of the etas back; one apply-batched launch (the spans
+    ``server.norms``, ``server.schedule``, ``server.apply``). Returns (new_vec,
     etas, gammas, dists, dnorms, scales): the per-update scalars as f32
     numpy arrays in arrival order, etas the effective multipliers on the
     raw deltas.
@@ -86,11 +88,14 @@ def flat_aggregate_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
     (0,1) clip, 0 reject) folded into the schedule. ``scales`` is None when
     ``screen`` is.
     """
-    etas, gammas, dists, dnorms, scales = _burst_schedule(
-        fedagg.norms_batched_packed(x_t, x_stales, deltas), deltas.shape[0],
-        lam, eps, cap, screen)
-    new = fedagg.fedagg_apply_batched(
-        x_t, deltas, torch.from_numpy(etas).to(x_t.device))
+    with tracing.span("server.norms"):
+        packed = fedagg.norms_batched_packed(x_t, x_stales, deltas)
+    with tracing.span("server.schedule"):
+        etas, gammas, dists, dnorms, scales = _burst_schedule(
+            packed, deltas.shape[0], lam, eps, cap, screen)
+        etas_dev = torch.from_numpy(etas).to(x_t.device)
+    with tracing.span("server.apply"):
+        new = fedagg.fedagg_apply_batched(x_t, deltas, etas_dev)
     return new, etas, gammas, dists, dnorms, scales
 
 
@@ -141,11 +146,14 @@ def flat_aggregate_batched_q(x_t: torch.Tensor, x_stales: torch.Tensor,
     steps, the deltas dequantized inside both sweeps. The screen sees the
     kernel-emitted norms of the DEQUANTIZED deltas, and its clip scales
     fold into the etas exactly. Same return signature as the f32 path."""
-    etas, gammas, dists, dnorms, scales = _burst_schedule(
-        fedagg.norms_batched_packed(x_t, x_stales, qs, qscales), qs.shape[0],
-        lam, eps, cap, screen)
-    new = fedagg.fedagg_apply_batched_q(
-        x_t, qs, qscales, torch.from_numpy(etas).to(x_t.device))
+    with tracing.span("server.norms"):
+        packed = fedagg.norms_batched_packed(x_t, x_stales, qs, qscales)
+    with tracing.span("server.schedule"):
+        etas, gammas, dists, dnorms, scales = _burst_schedule(
+            packed, qs.shape[0], lam, eps, cap, screen)
+        etas_dev = torch.from_numpy(etas).to(x_t.device)
+    with tracing.span("server.apply"):
+        new = fedagg.fedagg_apply_batched_q(x_t, qs, qscales, etas_dev)
     return new, etas, gammas, dists, dnorms, scales
 
 
