@@ -44,14 +44,15 @@ _AGG_OPS = ("flat_aggregate", "flat_aggregate_displacement",
             "flat_aggregate_batched", "flat_aggregate_batched_q")
 
 
-def _staged(t: torch.Tensor) -> torch.Tensor:
-    """``t``, a tensor the flat server allocated and filled to stage a
-    drain's operands (or a tuple of its shards), counted in
-    ``server.copy_bytes``."""
+def _staged(t: torch.Tensor, source: PyTree = None) -> torch.Tensor:
+    """``t``, a tensor the flat server filled to stage a drain's operands
+    (or a tuple of its shards), counted in ``server.copy_bytes`` as the
+    bytes its filling moves: ``source`` (a tensor or tree; by default as
+    many bytes as ``t`` holds, a copy) read once and ``t`` written once."""
     if tracing.active():
-        tracing.count("server.copy_bytes", sum(
-            s.numel() * s.element_size()
-            for s in (t if isinstance(t, tuple) else (t,))))
+        written = pt.tree_bytes(t)
+        tracing.count("server.copy_bytes", written + (
+            written if source is None else pt.tree_bytes(source)))
     return t
 
 
@@ -346,24 +347,20 @@ class AsyncFedEDServer(AsyncServer):
         if cd.q.shape[0] == n_pad:
             return cd.q, cd.scales
         q = _staged(torch.nn.functional.pad(cd.q,
-                                            (0, n_pad - cd.q.shape[0])))
+                                            (0, n_pad - cd.q.shape[0])), cd.q)
         scales = cd.scales
         if scales is not None:
             scales = _staged(torch.nn.functional.pad(
-                scales, (0, n_pad // fedagg.QBLOCK - scales.shape[0])))
+                scales, (0, n_pad // fedagg.QBLOCK - scales.shape[0])),
+                scales)
         return q, scales
 
-    def _flat_delta(self, delta: PyTree) -> torch.Tensor:
-        """A delta tree flattened to the server's padded length; what its
-        casts, concatenation and padding fill counts in
+    def _flat_delta(self, delta: PyTree,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A delta tree flattened to the server's padded length, into
+        ``out`` (a row of a drain's stack) if given, counted in
         ``server.copy_bytes``."""
-        spec = self._flat.spec
-        if tracing.active():
-            cast = sum(4 * n for n, dt in zip(spec.sizes, spec.dtypes)
-                       if dt != torch.float32)
-            tracing.count("server.copy_bytes", cast + 4 * spec.n + (
-                4 * spec.n_padded if spec.n_padded != spec.n else 0))
-        return spec.flatten(delta)
+        return _staged(self._flat.spec.flatten(delta, out=out), delta)
 
     def _split_scales(self, scales: torch.Tensor):
         """int8 scales (or a stack of them) in the server's layout: beside
@@ -520,12 +517,19 @@ class AsyncFedEDServer(AsyncServer):
                     self._split_scales(qscales), lam=fed.lam, eps=fed.eps,
                     cap=fed.staleness_cap, screen=screen_fn))
         else:
-            # "off" flattens trees; "bf16" stacks the payloads, which ride
-            # the f32 kernels
+            # "off" writes each tree into its row of the stack; "bf16"
+            # stacks the payloads, which ride the f32 kernels
             with tracing.span("server.flatten"):
-                deltas = _staged(torch.stack([
-                    self._wire_padded(u.delta)[0] if mode == "bf16"
-                    else self._flat_delta(u.delta) for u in upds]))
+                if mode == "bf16":
+                    deltas = _staged(torch.stack(
+                        [self._wire_padded(u.delta)[0] for u in upds]))
+                else:
+                    spec = self._flat.spec
+                    deltas = torch.empty((len(upds), spec.n_padded),
+                                         dtype=torch.float32,
+                                         device=spec.device)
+                    for i, u in enumerate(upds):
+                        self._flat_delta(u.delta, out=deltas[i])
             new_vec, etas, gammas, dists, dnorms, scales = (
                 self._agg["flat_aggregate_batched"](
                     self._flat.vec, stales, self._split(deltas), lam=fed.lam,

@@ -198,7 +198,7 @@ class FlatSpec:
     f32, concatenate, and zero-pad to a multiple of ``block`` (a layout
     constant of the flat state, 65536 for the server). ``FlatSpec``
     captures the structure, leaf shapes/dtypes, the padded length and the
-    device once, so both directions are a single concat/split.
+    device once; flattening writes each leaf once into its slice.
     """
 
     __slots__ = ("treedef", "shapes", "dtypes", "sizes", "n", "n_padded",
@@ -214,12 +214,31 @@ class FlatSpec:
         self.n_padded = self.n + (-self.n) % max(self.block, 1)
         self.device = leaves[0].device
 
-    def flatten(self, tree: PyTree) -> torch.Tensor:
-        """Tree (matching this spec) -> padded flat f32 vector."""
-        vec = tree_flatten_to_vector(tree)
+    def flatten(self, tree: PyTree,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Tree (matching this spec) -> padded flat f32 vector, written in
+        one pass: one concatenation of the raveled leaves straight into
+        the vector (a leaf of another dtype is cast on the way), then
+        zeros in the padding alone. ``out``, a contiguous f32
+        ``(n_padded,)`` tensor such as a row of a stack, receives the
+        vector in place of a new one."""
+        leaves = tree_leaves(tree)
+        if tuple(l.numel() for l in leaves) != self.sizes:
+            raise ValueError("the tree's leaves do not match the spec's "
+                             f"sizes {self.sizes}")
+        if out is None:
+            out = torch.empty((self.n_padded,), dtype=torch.float32,
+                              device=leaves[0].device)
+        elif (tuple(out.shape) != (self.n_padded,)
+              or out.dtype != torch.float32 or not out.is_contiguous()):
+            raise ValueError(
+                f"out must be a contiguous float32 ({self.n_padded},) "
+                f"tensor, got {out.dtype} {tuple(out.shape)} with strides "
+                f"{out.stride()}")
+        torch.cat([l.reshape(-1) for l in leaves], out=out[:self.n])
         if self.n_padded != self.n:
-            vec = torch.nn.functional.pad(vec, (0, self.n_padded - self.n))
-        return vec
+            out[self.n:].zero_()
+        return out
 
     def unflatten(self, vec: torch.Tensor) -> PyTree:
         """Padded flat vector -> tree with the original shapes/dtypes.

@@ -22,8 +22,9 @@ Span names are ``<layer>.<phase>``:
   ``server.record`` (``core/server.py``) and ``server.norms``,
   ``server.schedule``, ``server.apply`` (``kernels/fedagg/ops.py``).
 
-Counters: ``server.copy_bytes`` (bytes of the tensors the server allocates
-and fills to stage a drain's operands), ``gmis.lookups`` and
+Counters: ``server.copy_bytes`` (bytes the copies that stage a drain's
+operands move: each byte of a source read once, each byte of a staged
+tensor written once), ``gmis.lookups`` and
 ``gmis.clamps`` (``RingGMIS.get``), ``client.steps`` (real rows times real
 local steps).
 """

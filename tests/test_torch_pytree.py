@@ -118,6 +118,47 @@ class TestFlatSpec:
         assert spec.n == 13 + 15 and spec.n_padded == 64
         assert spec.zeros().shape == (64,)
 
+    @pytest.mark.parametrize("case", [
+        (dtype, block, out) for dtype in ("f32", "bf16")
+        for block in (64, 1) for out in ("new", "row")]
+        + ["short", "f64", "strided"], ids=str)
+    def test_flatten_writes_each_leaf_once(self, case):
+        """``flatten`` (a new vector, or a row of a stack given as ``out``)
+        equals the concatenation and zero padding it replaced, to the bit,
+        with a bf16 leaf, a transposed leaf and a scalar leaf, padded and
+        not; it writes its row's tail and nothing outside the row; an
+        ``out`` of another length, dtype or layout raises."""
+        g = torch.Generator().manual_seed(3)
+        dtype, block, out = (case if isinstance(case, tuple)
+                             else ("f32", 64, case))
+        tree = {"w": torch.randn(13, generator=g),
+                "b": {"c": torch.randn(3, 5, generator=g).to(
+                          torch.bfloat16 if dtype == "bf16"
+                          else torch.float32),
+                      "s": torch.tensor(1.5)},
+                "t": torch.randn(4, 3, generator=g).t()}
+        spec = tpt.FlatSpec(tree, block=block)
+        assert spec.n == 13 + 15 + 1 + 12
+        assert (spec.n_padded > spec.n) == (block == 64)
+        bad = {"short": torch.empty(spec.n_padded - 1),
+               "f64": torch.empty(spec.n_padded, dtype=torch.float64),
+               "strided": torch.empty(2 * spec.n_padded)[::2]}
+        if out in bad:
+            with pytest.raises(ValueError):
+                spec.flatten(tree, out=bad[out])
+            return
+        old = torch.nn.functional.pad(
+            torch.cat([l.reshape(-1).float() for l in tpt.tree_leaves(tree)]),
+            (0, spec.n_padded - spec.n))
+        stack = torch.full((3, spec.n_padded), float("nan"))
+        vec = spec.flatten(tree, out=stack[1] if out == "row" else None)
+        if out == "row":
+            assert vec.data_ptr() == stack[1].data_ptr()
+            assert torch.isnan(stack[0::2]).all()
+        assert vec.dtype == torch.float32 and vec.shape == old.shape
+        assert torch.equal(vec.view(torch.int32), old.view(torch.int32))
+        assert torch.equal(vec[spec.n:], torch.zeros(spec.n_padded - spec.n))
+
     def test_tree_bytes_matches(self, trees):
         jtree, ttree = trees
         assert tpt.tree_bytes(ttree) == jpt.tree_bytes(jtree)

@@ -29,7 +29,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import compression as tc
 from repro_torch.core.server import (AsyncFedEDServer, ClientUpdate,
                                      make_server)
-from repro_torch.kernels.fedagg import fedagg
+from repro_torch.kernels.fedagg import fedagg, ops
 from repro_torch.utils import pytree as pt
 
 
@@ -346,6 +346,59 @@ class TestBurstDrain:
         assert all(r.iteration == s_bat.t for r in replies)
         # only the final version entered the GMIS
         assert s_bat.gmis.num_stored == 2
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_drains_match_the_old_staging(self, dtype):
+        """A batched drain of three, a single drain and another batched
+        drain give, to the bit, the history and flat vectors of
+        ``ops.flat_aggregate_batched`` / ``ops.flat_aggregate`` fed by
+        stacks built as the server built them before it wrote each delta
+        into its row (cat, pad, stack); a reply's params are unchanged by
+        the drains after it, so the fresh stacks alias nothing handed
+        out."""
+        cast = lambda t: pt.tree_map(lambda l: l.to(dtype)
+                                     if l.shape == (129,) else l, t)
+        fed = FedConfig(lam=1.0, eps=1.0, staleness_cap=4.0)
+        srv = make_server("asyncfeded", cast(params_from_numpy(
+            jax.tree.map(np.asarray, mk_params()), device="cpu")), fed,
+            backend="pallas")
+        spec = srv._flat.spec
+        old = lambda t: torch.nn.functional.pad(
+            torch.cat([l.reshape(-1).float() for l in pt.tree_leaves(t)]),
+            (0, spec.n_padded - spec.n))
+        kw = dict(lam=fed.lam, eps=fed.eps, cap=fed.staleness_cap)
+        its = {c: srv.on_connect(c).iteration for c in range(3)}
+        x = srv._flat.vec.clone()
+        versions, want, kept = {1: x}, [], []
+        for seed, drain in enumerate(([0, 1, 2], [1], [2, 0, 1])):
+            ups = [ClientUpdate(c, its[c], 5, cast(params_from_numpy(
+                mk_delta(10 * seed + c), device="cpu"))) for c in drain]
+            replies = srv.on_update_batch(ups)
+            stales = [versions[u.snapshot_iter] for u in ups]
+            if len(ups) > 1:
+                x, etas, gammas, dists, dnorms, _ = (
+                    ops.flat_aggregate_batched(
+                        x, torch.stack(stales),
+                        torch.stack([old(u.delta) for u in ups]), **kw))
+                want += zip(gammas.tolist(), etas.tolist(), dists.tolist(),
+                            dnorms.tolist())
+            else:
+                x, *scalars = ops.flat_aggregate(
+                    x, stales[0], old(ups[0].delta), **kw)
+                want.append(tuple(torch.stack(scalars).tolist()))
+            versions[srv.t] = x
+            assert torch.equal(srv._flat.vec.view(torch.int32),
+                               x.view(torch.int32))
+            assert [(r.gamma, r.eta, r.dist, r.delta_norm)
+                    for r in srv.history] == want
+            for tree, copies in kept:
+                assert all(torch.equal(a, b) for a, b in zip(
+                    pt.tree_leaves(tree), copies))
+            leaves = pt.tree_leaves(replies[0].params)
+            kept.append((replies[0].params, [l.clone() for l in leaves]))
+            its.update({u.client_id: r.iteration
+                        for u, r in zip(ups, replies)})
+        assert srv.t == 8 and len(kept) == 3
 
     @pytest.mark.parametrize("case", ["displacement", "cosine", "mixed",
                                       "pytree"])

@@ -6,8 +6,8 @@ counters the program opens with it, on the CPU.
   counters add up, and ``collect`` hands the recording back and turns it
   off.
 * The program: a flat ring server's burst drain opens its phases in order
-  inside ``server.drain``; ``server.copy_bytes`` is the stacks', the
-  flattening's and the padding's bytes; ``gmis.clamps`` counts the lookups
+  inside ``server.drain``; ``server.copy_bytes`` is the bytes its
+  staging copies read and write; ``gmis.clamps`` counts the lookups
   a shallow ring clamps; both client engines count ``client.steps`` as the
   sum of the real rows' K; and a simulation's history, replies and
   evaluations are the same with the recorder on and off.
@@ -155,13 +155,14 @@ def test_burst_drain_opens_its_phases_in_order(dtype):
                                       "server.norms", "server.schedule",
                                       "server.apply", "server.record"]
     assert all(a.host_close <= b.host_open for a, b in zip(kids, kids[1:]))
-    n, n_pad = 33 * 7 + 129, fedagg.BLOCK
-    # per update: its stale snapshot's row, its delta's concatenation
-    # (n f32) and padding (n_pad), its row of the delta stack, and a
-    # bf16 leaf's cast to f32
-    cast = 129 if dtype == torch.bfloat16 else 0
-    assert rec.counters["server.copy_bytes"] == 3 * 4 * (n + 3 * n_pad
-                                                         + cast)
+    n_pad = fedagg.BLOCK
+    # per update: its stale snapshot read into its row of the stale stack
+    # (4 n_pad each way), its delta's leaves read (129 of them bf16 in
+    # the bf16 tree) and written once, cast, into its row of the delta
+    # stack (4 n_pad)
+    leaves = 4 * 33 * 7 + 129 * (2 if dtype == torch.bfloat16 else 4)
+    assert rec.counters["server.copy_bytes"] == 3 * (3 * 4 * n_pad
+                                                     + leaves)
     assert rec.counters["gmis.lookups"] == 3
     assert "gmis.clamps" not in rec.counters
 
@@ -175,6 +176,7 @@ def test_single_drain_opens_server_update():
     assert [(s.name, s.parent) for s in rec.spans] == [
         ("server.drain", None), ("server.update", 0)]
     assert rec.spans[0].attrs["path"] == "single"
+    # the delta's leaves read and its padded vector written once
     assert rec.counters["server.copy_bytes"] == 4 * (33 * 7 + 129
                                                      + fedagg.BLOCK)
 
