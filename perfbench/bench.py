@@ -7,6 +7,22 @@ found by name alone: ``perfbench/configs/<config>.json``,
 ``perfbench/runners``), ``perfbench/limits/<cell>.json`` (the limits of
 the numbers that decide ``correct``) and, for each per-layer metric,
 ``perfbench/metrics/<metric>.py`` with a function ``read(ctx)``.
+
+A model configuration enters from new files alone. Its file
+(``perfbench/configs/<config>.json``) names the port's registered
+architecture (``port_arch``), whose fields its keys replace (a section
+such as ``ssm`` or ``moe`` replaces the sub-configuration's keys), and
+its ``reference``, which names two modules:
+
+* ``perfbench/reference/<reference>.py``: ``forward(params, tokens, cfg,
+  prec)``, the plain model; ``leaf_specs(cfg)``, every leaf in the port's
+  tree layout (built from :mod:`perfbench.weights`' parts); ``TINY``, a
+  configuration the benchmark's tests run on the CPU;
+* ``perfbench/work/<reference>.py``: ``forward_flops(cfg, rows, seq)``
+  (built from :mod:`perfbench.work.flops`' parts).
+
+With its traffic file, if new, its cells' limit files, its metrics' readers
+and its entries in ``BENCHMARK.json``, that is all it brings.
 """
 from __future__ import annotations
 

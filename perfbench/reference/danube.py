@@ -6,13 +6,30 @@ head's two halves as the rotated pair, theta from the configuration), the
 key and value heads repeated to the query heads, softmax attention over the
 full score matrix with the causal and window mask, the output projection
 and the residual; then RMSNorm, the SwiGLU MLP and the residual. The head
-is untied. Parameters are the tree of :mod:`perfbench.weights`.
+is untied. Parameters are the tree of :mod:`perfbench.weights`, laid out
+by :func:`leaf_specs`: the blocks stacked under ``layers/b0_attn``.
 """
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
+from perfbench import weights
 from perfbench.reference.ops import Precision, rmsnorm, silu
+
+#: the model cut to a size the CPU runs in a second (the benchmark's tests)
+TINY = {"name": "tiny-danube", "port_arch": "h2o-danube-1.8b",
+        "reference": "danube", "family": "dense", "num_layers": 2,
+        "d_model": 32, "num_heads": 4, "num_kv_heads": 2, "head_dim": 8,
+        "d_ff": 48, "vocab_size": 96, "sliding_window": 12,
+        "rope_theta": 10000.0, "tie_embeddings": False, "norm": "rmsnorm",
+        "dtype": "float32"}
+
+
+def leaf_specs(cfg: dict) -> List[weights.LeafSpec]:
+    return weights.outer_specs(cfg) + weights.stacked(
+        0, "attn", weights.attn_specs(cfg), cfg["num_layers"])
 
 
 def rope(x: torch.Tensor, theta: float) -> torch.Tensor:

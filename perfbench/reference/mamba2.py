@@ -11,14 +11,32 @@ the gate y * SiLU(z) under an RMSNorm, the output projection, and the
 residual. The decay sums are taken in float64 from one cumulative sum (a
 float32 difference of two long cumulative sums would lose digits). The
 head is tied to the token embedding. Parameters are the tree of
-:mod:`perfbench.weights`.
+:mod:`perfbench.weights`, laid out by :func:`leaf_specs`: the blocks
+stacked under ``layers/b0_ssd``.
 """
 from __future__ import annotations
+
+from typing import List
 
 import torch
 import torch.nn.functional as F
 
+from perfbench import weights
 from perfbench.reference.ops import Precision, rmsnorm, silu
+
+#: the model cut to a size the CPU runs in a second (the benchmark's tests)
+TINY = {"name": "tiny-mamba2", "port_arch": "mamba2-1.3b",
+        "reference": "mamba2", "family": "ssm", "num_layers": 2,
+        "d_model": 32, "vocab_size": 96, "tie_embeddings": True,
+        "norm": "rmsnorm",
+        "ssm": {"state_dim": 8, "head_dim": 8, "expand": 2, "conv_width": 4,
+                "chunk_size": 8, "ngroups": 1},
+        "dtype": "float32"}
+
+
+def leaf_specs(cfg: dict) -> List[weights.LeafSpec]:
+    return weights.outer_specs(cfg) + weights.stacked(
+        0, "ssd", weights.ssd_specs(cfg), cfg["num_layers"])
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,

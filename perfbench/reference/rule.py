@@ -25,7 +25,7 @@ import math
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
-TINY = 1e-12
+_TINY = 1e-12
 
 
 @dataclasses.dataclass
@@ -57,7 +57,7 @@ class RuleParams:
 
 
 def gamma_eta(dist: float, dnorm: float, rp: RuleParams) -> Tuple[float, float]:
-    gamma = 0.0 if dist <= TINY else dist / max(dnorm, TINY)
+    gamma = 0.0 if dist <= _TINY else dist / max(dnorm, _TINY)
     if rp.staleness_cap > 0.0:
         gamma = min(gamma, rp.staleness_cap)
     return gamma, rp.lam / (gamma + rp.eps)

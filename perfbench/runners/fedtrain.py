@@ -30,6 +30,7 @@ import gc
 import math
 import time
 import types
+import typing
 
 import torch
 
@@ -37,21 +38,39 @@ from perfbench import bench, feed, judge, trace, weights
 from perfbench.reference import federation
 from perfbench.reference.ops import exact_matmul
 
-#: ModelConfig fields a configuration file may set
-_PORT_KEYS = ("family", "num_layers", "d_model", "num_heads", "num_kv_heads",
-              "head_dim", "d_ff", "vocab_size", "sliding_window",
-              "rope_theta", "tie_embeddings", "norm", "dtype")
-
 
 def port_config(cfg: dict):
     """The port's ModelConfig of a configuration file: the registered
-    architecture with the file's sizes."""
+    architecture with every key of the file that names one of its fields.
+    A sub-configuration (``ssm``, ``moe``) replaces its keys in the
+    architecture's, or is built from its dataclass where the architecture
+    has none; a list is a tuple. Keys that name no field are ignored."""
     from repro_torch.configs import get_arch
     base = get_arch(cfg["port_arch"])
-    fields = {k: cfg[k] for k in _PORT_KEYS if k in cfg}
-    if "ssm" in cfg:
-        fields["ssm"] = dataclasses.replace(base.ssm, **cfg["ssm"])
+    hints = typing.get_type_hints(type(base))
+    fields = {f.name: _port_value(getattr(base, f.name), hints[f.name],
+                                  cfg[f.name])
+              for f in dataclasses.fields(base) if f.name in cfg}
     return dataclasses.replace(base, **fields)
+
+
+def _tuples(value):
+    return tuple(value) if isinstance(value, list) else value
+
+
+def _port_value(current, hint, value):
+    if not isinstance(value, dict):
+        return _tuples(value)
+    value = {k: _tuples(v) for k, v in value.items()}
+    if current is not None:
+        return dataclasses.replace(current, **value)
+    cls = [t for t in typing.get_args(hint) if dataclasses.is_dataclass(t)]
+    return cls[0](**value)
+
+
+def has_ssd(cfg: dict) -> bool:
+    """Whether the configuration has SSD layers (an ``ssm`` section)."""
+    return "ssm" in cfg
 
 
 def port_task(cfg: dict, traffic: dict):
@@ -70,7 +89,7 @@ def load_kernels(cfg: dict) -> None:
     """Build (first run in a checkout) or load the kernels the cell runs."""
     from repro_torch.kernels.fedagg import fedagg
     fedagg.load_libraries()
-    if cfg["family"] == "ssm":
+    if has_ssd(cfg):
         from repro_torch.kernels.ssd import ssd
         ssd.load_library()
 
@@ -181,7 +200,7 @@ class _Run:
 
     def _count_ssd_launches(self) -> None:
         """Record each SSD kernel launch's shape (traced runs)."""
-        if self.cfg["family"] != "ssm":
+        if not has_ssd(self.cfg):
             return
         from repro_torch.kernels.ssd import ssd
         launch = ssd.launch

@@ -116,8 +116,7 @@ def _k_rule_broken_late(sim):
     kctl.observe = broken
 
 
-@pytest.mark.parametrize("cfg", [tiny.MAMBA2, tiny.DANUBE],
-                         ids=lambda c: c["name"])
+@pytest.mark.parametrize("cfg", tiny.CONFIGS, ids=lambda c: c["name"])
 def test_training_port_is_correct(cfg):
     assert _train(cfg)
 

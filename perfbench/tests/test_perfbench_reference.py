@@ -16,7 +16,7 @@ from perfbench.reference import federation as fed_ref
 from perfbench.reference.ops import Precision, cross_entropy, round_tf32
 from perfbench.tests import tiny
 
-CONFIGS = [tiny.MAMBA2, tiny.DANUBE]
+CONFIGS = tiny.CONFIGS
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,26 +1,29 @@
 """Cells of the benchmark cut to a size the CPU runs in a second: every
 width small, the shapes' relations kept (two SSD chunks a sequence, grouped
-heads, a window shorter than the sequence)."""
+heads, a window shorter than the sequence). Each reference module brings
+its model's tiny configuration as ``TINY``."""
 from __future__ import annotations
 
 import copy
+import importlib
 import json
+import pkgutil
 
-from perfbench import bench
+from perfbench import bench, reference
+from perfbench.reference import danube, mamba2
 
-MAMBA2 = {"name": "tiny-mamba2", "port_arch": "mamba2-1.3b",
-          "reference": "mamba2", "family": "ssm", "num_layers": 2,
-          "d_model": 32, "vocab_size": 96, "tie_embeddings": True,
-          "norm": "rmsnorm",
-          "ssm": {"state_dim": 8, "head_dim": 8, "expand": 2, "conv_width": 4,
-                  "chunk_size": 8, "ngroups": 1},
-          "dtype": "float32"}
-DANUBE = {"name": "tiny-danube", "port_arch": "h2o-danube-1.8b",
-          "reference": "danube", "family": "dense", "num_layers": 2,
-          "d_model": 32, "num_heads": 4, "num_kv_heads": 2, "head_dim": 8,
-          "d_ff": 48, "vocab_size": 96, "sliding_window": 12,
-          "rope_theta": 10000.0, "tie_embeddings": False, "norm": "rmsnorm",
-          "dtype": "float32"}
+
+def _tiny_configs() -> list:
+    """``TINY`` of every module of ``perfbench/reference`` that has one."""
+    mods = [importlib.import_module(f"perfbench.reference.{m.name}")
+            for m in pkgutil.iter_modules(reference.__path__)]
+    return [m.TINY for m in mods if hasattr(m, "TINY")]
+
+
+#: every model's tiny configuration, found by file
+CONFIGS = _tiny_configs()
+MAMBA2 = mamba2.TINY
+DANUBE = danube.TINY
 TRAIN_LIMITS = {"eval_loss_gap": 1e-4, "grad1_gap": 1e-4, "delta_gap": 1e-4,
                 "change_gap": 1e-4, "rule_gap": 1e-4, "trace_errors": 0,
                 "nonfinite_updates": 0}

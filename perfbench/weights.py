@@ -2,12 +2,19 @@
 both the port and the plain reference.
 
 The tree is laid out as the port's models take it (``embed``, ``layers``
-with the layers stacked along a leading dimension, ``final_norm``,
-``head``), every leaf in float32. :func:`draw` makes the whole model in a
-few large calls on the device: one buffer, one normal draw over it from a
-``torch.Generator`` seeded with the run's seed, then fills and scales by
-leaf. The leaves are views of that buffer, in the order of sorted keys, so
-the buffer is the model's flat vector as the port flattens it.
+with the layers of each position of the block pattern stacked along a
+leading dimension, ``tail{j}_{kind}`` for the layers after the last whole
+repetition, ``final_norm``, ``head``), every leaf in float32. The layout
+is the configuration's reference module's (its ``leaf_specs``), built
+from the parts here: the blocks of the port's kinds (:func:`ssd_specs`,
+:func:`attn_specs`), :func:`outer_specs`, :func:`stacked` and
+:func:`tail`.
+
+:func:`draw` makes the whole model in a few large calls on the device: one
+buffer, one normal draw over it from a ``torch.Generator`` seeded with the
+run's seed, then fills and scales by leaf. The leaves are views of that
+buffer, in the order of sorted keys, so the buffer is the model's flat
+vector as the port flattens it.
 
 Initial values: normal with standard deviation 0.02 for the dense weights
 and 1.0 for the token embedding, ones for norm scales, ``a_log`` and
@@ -16,6 +23,7 @@ and 1.0 for the token embedding, ones for norm scales, ``a_log`` and
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 from typing import Dict, List, Tuple
 
@@ -30,7 +38,13 @@ class LeafSpec:
     scale: float = 0.02
 
 
-def _mamba2_block(cfg: dict) -> Dict[str, LeafSpec]:
+#: one block's leaves: the path inside the block -> (shape, init)
+Block = Dict[Tuple[str, ...], Tuple[Tuple[int, ...], str]]
+
+
+def ssd_specs(cfg: dict) -> Block:
+    """A Mamba-2 block (the port's ``ssd`` kind): a norm and the SSD
+    mixer."""
     s, d = cfg["ssm"], cfg["d_model"]
     dinner = s["expand"] * d
     heads = dinner // s["head_dim"]
@@ -49,7 +63,9 @@ def _mamba2_block(cfg: dict) -> Dict[str, LeafSpec]:
     }
 
 
-def _attn_block(cfg: dict) -> Dict[str, LeafSpec]:
+def attn_specs(cfg: dict) -> Block:
+    """An attention block with a SwiGLU MLP (the port's ``attn`` kind with
+    no experts)."""
     d, h, kv, hd, f = (cfg["d_model"], cfg["num_heads"], cfg["num_kv_heads"],
                        cfg["head_dim"], cfg["d_ff"])
     return {
@@ -65,21 +81,37 @@ def _attn_block(cfg: dict) -> Dict[str, LeafSpec]:
     }
 
 
-_BLOCKS = {"ssm": ("b0_ssd", _mamba2_block), "dense": ("b0_attn", _attn_block)}
-
-
-def leaf_specs(cfg: dict) -> List[LeafSpec]:
-    """Every leaf of the model, in sorted-key order."""
-    d, v, layers = cfg["d_model"], cfg["vocab_size"], cfg["num_layers"]
-    name, block = _BLOCKS[cfg["family"]]
+def outer_specs(cfg: dict) -> List[LeafSpec]:
+    """The leaves around the layers: the token embedding, the final norm
+    and, untied, the head."""
+    d, v = cfg["d_model"], cfg["vocab_size"]
     specs = [LeafSpec(("embed", "tok"), (v, d), "normal", 1.0),
              LeafSpec(("final_norm", "scale"), (d,), "ones")]
     if not cfg["tie_embeddings"]:
         specs.append(LeafSpec(("head", "out"), (d, v)))
-    for sub, (shape, init) in block(cfg).items():
-        specs.append(LeafSpec(("layers", name) + sub, (layers,) + shape,
-                              init))
-    return sorted(specs, key=lambda s: s.path)
+    return specs
+
+
+def stacked(i: int, kind: str, block: Block, groups: int) -> List[LeafSpec]:
+    """Position ``i`` of the block pattern, a block of ``kind``, stacked
+    over the pattern's ``groups`` repetitions under ``layers/b{i}_{kind}``."""
+    return [LeafSpec(("layers", f"b{i}_{kind}") + sub, (groups,) + shape,
+                     init) for sub, (shape, init) in block.items()]
+
+
+def tail(j: int, kind: str, block: Block) -> List[LeafSpec]:
+    """The ``j``-th layer after the pattern's last whole repetition, a block
+    of ``kind``, under ``tail{j}_{kind}``."""
+    return [LeafSpec((f"tail{j}_{kind}",) + sub, shape, init)
+            for sub, (shape, init) in block.items()]
+
+
+def leaf_specs(cfg: dict) -> List[LeafSpec]:
+    """Every leaf of the model, in sorted-key order: the layout that
+    ``leaf_specs`` of the configuration's reference module
+    (``perfbench/reference/<reference>.py``) gives."""
+    mod = importlib.import_module(f"perfbench.reference.{cfg['reference']}")
+    return sorted(mod.leaf_specs(cfg), key=lambda s: s.path)
 
 
 def tree_of(leaves: Dict[Tuple[str, ...], torch.Tensor]) -> dict:
