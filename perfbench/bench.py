@@ -21,6 +21,19 @@ its ``reference``, which names two modules:
 * ``perfbench/work/<reference>.py``: ``forward_flops(cfg, rows, seq)``
   (built from :mod:`perfbench.work.flops`' parts).
 
+A model that routes tokens to experts (its file has a ``moe`` section)
+chooses them, on the port's side, through
+``repro_torch.models.moe.top_k(scores, k)``, once per routed layer and
+forward: :mod:`perfbench.tap` records the scores and indices of each call
+through set-up. Its reference module's ``forward`` takes a keyword
+``route`` and, in each routed layer, calls ``route(scores, k)`` with its
+own scores ``(..., E)``, in the order of its forward; the callback
+(:class:`perfbench.reference.route.Follow`) returns the indices the
+program chose for the same forward and layer, and the routing weights are
+gathered from the reference's own scores at them. The cell's limits file
+lists ``route_gap`` and ``route_errors``: without them the cell is
+refused.
+
 With its traffic file, if new, its cells' limit files, its metrics' readers
 and its entries in ``BENCHMARK.json``, that is all it brings.
 """

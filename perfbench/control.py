@@ -11,7 +11,9 @@ judge compares:
   reading);
 * a training cell's ``tf32`` — the control: the reference in the program's
   place with every matrix product's operands rounded to TF32, the step
-  below the configuration's float32 with TF32 off;
+  below the configuration's float32 with TF32 off (a routed model's
+  control chooses its experts by itself, and the judge follows those
+  choices as it follows the program's);
 * a training cell's ``half_rows`` — a fault: the reference in the
   program's place training on half of each batch's rows, the mean taken
   over the rest;
@@ -54,7 +56,8 @@ def fedtrain_readings(cell: bench.Cell, seed: int, device: str):
         it = iter(v.rounds)
         drains = [[(c, *next(it)) for c in d] for d in followed]
         captured = {"eval_loss": v.eval_loss, "delta": v.delta_norms,
-                    "grad1": v.grad1_norms, "change": v.change_norms}
+                    "grad1": v.grad1_norms, "change": v.change_norms,
+                    "routes": v.router and v.router.made}
         checks, _ = judge.fedtrain(cfg, tr, seed, p.device, drains,
                                    len(drains), v.records, captured,
                                    cell.limits)

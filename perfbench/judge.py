@@ -20,15 +20,18 @@ the reference continues from it.
 In a training cell the reference follows the set-up's drains; every update
 of the run, the window's too, is also checked on its own
 (:func:`run_errors`, and eta against Eq. 7 on the program's gamma in
-``rule_gap``).
+``rule_gap``). A model that routes tokens to experts follows the program's
+recorded choices and is judged on them (``route_gap``, ``route_errors``:
+:mod:`perfbench.reference.route`); its limits file has to list both, or
+the cell is refused.
 """
 from __future__ import annotations
 
 import math
 import statistics
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from perfbench.reference import federation
+from perfbench.reference import federation, route
 from perfbench.reference.rule import RuleParams, k_next
 
 TINY = 1e-12
@@ -141,7 +144,8 @@ def trace_errors(prog_records, ref_records) -> int:
 
 def fedtrain(cfg: dict, traffic: dict, seed: int, device, drains,
              setup_drains: int, history, captured: dict, limits: dict,
-             prec: str = "f32", rows=None) -> Tuple[Dict[str, tuple], int]:
+             prec: str = "f32", rows=None, follow_routes: bool = True,
+             notes: Optional[list] = None) -> Tuple[Dict[str, tuple], int]:
     """The numbers of a training cell: the reference follows the seeding
     fan-out and the set-up's first ``setup_drains`` drains (``drains``: the
     clients of each drain of the run, with the snapshot and K they
@@ -149,7 +153,12 @@ def fedtrain(cfg: dict, traffic: dict, seed: int, device, drains,
     the control or a fault in the reference's place of the program (see
     ``perfbench/control.py``). Every update of the run, the window's too,
     must carry a finite gamma and delta norm and pass :func:`run_errors`
-    and Eq. 7."""
+    and Eq. 7. A routed model's reference follows ``captured["routes"]``,
+    the program's expert choices (``follow_routes=False``: its own, to
+    show that the follow matters), and says in ``notes`` how many tokens it
+    followed and how many of them it would have routed otherwise."""
+    route.require_checks(cfg, limits)
+    routes = captured["routes"] if route.routes(cfg) else None
     followed = drains[:setup_drains]
     n_upd = sum(len(d) for d in followed)
     prog = history[:n_upd]
@@ -157,7 +166,14 @@ def fedtrain(cfg: dict, traffic: dict, seed: int, device, drains,
     kj = KJudge(prog, rp, limits["rule_gap"])
     ref = federation.follow(cfg, traffic, seed, [[c for c, _, _ in d]
                                                 for d in followed],
-                            device, prec=prec, rows=rows, k_of=kj)
+                            device, prec=prec, rows=rows, k_of=kj,
+                            routes=routes,
+                            route_limit=limits.get("route_gap", 0.0),
+                            follow_routes=follow_routes)
+    if ref.router is not None and notes is not None:
+        notes.append(f"info: routes followed for {ref.router.tokens} routed "
+                     f"tokens, {ref.router.flips} of them routed otherwise "
+                     f"by the reference alone")
     checks, errors = fedtrain_numbers(
         captured, followed, prog, ref, kj.errors + run_errors(
             drains, history, rp), limits)
@@ -189,6 +205,10 @@ def fedtrain_numbers(captured: dict, followed, prog, ref, k_errors: int,
         "rule_gap": rule_gap(prog, ref.records),
         "trace_errors": float(errors),
     }
+    if all(c in limits for c in route.CHECKS):
+        r = ref.router
+        numbers["route_gap"] = 0.0 if r is None else r.gap
+        numbers["route_errors"] = 0.0 if r is None else float(r.errors)
     return {k: (v, limits[k]) for k, v in numbers.items()}, errors
 
 

@@ -7,6 +7,8 @@ kernel, cache or batching of the port, and nothing imported from it.
   pass, its weight layout (``leaf_specs``) and a tiny configuration for the
   tests (``TINY``); a model's module is found by the ``reference`` key of
   its configuration file;
+* :mod:`.route` — top-k routing that follows the program's expert
+  choices and judges them (``route_gap``, ``route_errors``);
 * :mod:`.client` — a client's local round of momentum SGD;
 * :mod:`.rule` — the AsyncFedED rule, Eq. 5-8, with the ring GMIS;
 * :mod:`.federation` — the federation followed through its first drains.

@@ -10,26 +10,38 @@ carried and the K the rule handed it, where a later drain followed here
 needs it. The inputs are the benchmark's own: the weights of
 :mod:`perfbench.weights` and the streams of :mod:`perfbench.feed`, made
 again from the seed.
+
+A model that routes tokens to experts follows the program's choices
+(:mod:`perfbench.reference.route`): each forward followed is labelled as
+the program's tap labels it, ``("eval", 0)`` for the evaluation at x_1 and
+``("train", client, round, step)`` for a local step.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import itertools
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from perfbench import feed, weights
 from perfbench.reference import client as client_mod
+from perfbench.reference import route as route_mod
 from perfbench.reference.ops import Precision, cross_entropy
 from perfbench.reference.rule import Record, RuleParams, Server
 
 Leaves = Dict[tuple, torch.Tensor]
 
 
-def model_forward(cfg: dict, prec: Precision) -> Callable:
+def model_forward(cfg: dict, prec: Precision,
+                  router: Optional[route_mod.Follow] = None) -> Callable:
+    """The reference model's forward; a routed model's takes ``router``."""
     mod = importlib.import_module(f"perfbench.reference.{cfg['reference']}")
-    return lambda tree, tokens: mod.forward(tree, tokens, cfg, prec)
+    if router is None:
+        return lambda tree, tokens: mod.forward(tree, tokens, cfg, prec)
+    return lambda tree, tokens: mod.forward(tree, tokens, cfg, prec,
+                                            route=router)
 
 
 def leaf_norms(leaves: Leaves) -> Dict[tuple, float]:
@@ -73,16 +85,39 @@ class Followed:
     rounds: List[tuple]
     #: per-leaf norms of the global model's change over the drains followed
     change_norms: Dict[tuple, float]
+    #: a routed model's router callback, with what it measured and, where
+    #: the reference routed by itself, the choices it made
+    router: Optional[route_mod.Follow] = None
 
 
 def follow(cfg: dict, traffic: dict, seed: int, drains: List[List[int]],
            device, prec: str = "f32", rows: Optional[int] = None,
-           k_of: Optional[Callable] = None) -> Followed:
+           k_of: Optional[Callable] = None,
+           routes: Optional[route_mod.Records] = None,
+           route_limit: float = 0.0, follow_routes: bool = True) -> Followed:
     """Follow the seeding fan-out and ``drains`` (each a list of client ids
     in drain order). ``rows`` trains on the first rows of each batch only
-    (a fault planted in the reference); ``k_of`` is passed to the rule."""
+    (a fault planted in the reference); ``k_of`` is passed to the rule.
+    A routed model follows ``routes``, the program's recorded choices, and
+    judges them against ``route_limit``; with no ``routes`` it routes by
+    itself and hands its choices back. ``follow_routes=False`` routes by
+    itself while judging (a check that the follow matters)."""
     fed = traffic["fed"]
-    fwd = model_forward(cfg, Precision(prec))
+    router = None
+    if route_mod.routes(cfg):
+        router = route_mod.Follow(routes, route_limit, follow_routes)
+    fwd = model_forward(cfg, Precision(prec), router)
+
+    def labelled(label) -> Callable:
+        """The forward with each call labelled ``label + (step,)``."""
+        steps = itertools.count()
+
+        def call(tree, tokens):
+            if router is not None:
+                router.begin(label + (next(steps),))
+            return fwd(tree, tokens)
+        return call
+
     _, tree = weights.draw(cfg, seed, device)
     x1 = weights.leaves(tree)
     streams = [feed.client_stream(seed, c, cfg, traffic)
@@ -96,7 +131,8 @@ def follow(cfg: dict, traffic: dict, seed: int, drains: List[List[int]],
 
     with torch.no_grad():
         ev = batch(feed.eval_stream(seed, cfg, traffic))
-        eval_loss = float(cross_entropy(fwd(tree, ev[0]), ev[1]))
+        eval_loss = float(cross_entropy(labelled(("eval",))(tree, ev[0]),
+                                        ev[1]))
     server = Server(x1, RuleParams.of(fed), dist, norm, step)
     momentum: Dict[int, Optional[Leaves]] = {}
     pending = {c: (x1, 1, fed["k_initial"]) for c in range(len(streams))}
@@ -105,10 +141,11 @@ def follow(cfg: dict, traffic: dict, seed: int, drains: List[List[int]],
 
     def train(c: int) -> None:
         x, it, k = pending[c]
-        delta, momentum[c] = client_mod.local_round(
-            fwd, x, momentum.get(c), [batch(streams[c]) for _ in range(k)],
-            fed["local_lr"], fed["local_momentum"])
         n = sum(key[0] == c for key in out.delta_norms)
+        delta, momentum[c] = client_mod.local_round(
+            labelled(("train", c, n)), x, momentum.get(c),
+            [batch(streams[c]) for _ in range(k)],
+            fed["local_lr"], fed["local_momentum"])
         out.delta_norms[(c, n)] = leaf_norms(delta)
         if n == 0:
             out.grad1_norms[c] = leaf_norms(first_gradient(
@@ -131,4 +168,7 @@ def follow(cfg: dict, traffic: dict, seed: int, drains: List[List[int]],
             if c in later:
                 train(c)
     out.change_norms = leaf_norms({k: server.x[k] - x1[k] for k in x1})
+    if router is not None:
+        router.finish()
+        out.router = router
     return out

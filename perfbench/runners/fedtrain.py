@@ -21,7 +21,10 @@ tokens of every local step run inside the window over its length.
 (the evaluation at the initial model, every round drained in set-up and
 its drains) and the judge compares the numbers of
 :func:`perfbench.judge.fedtrain`; the integers of every update of the run,
-the window's too, are checked against Eq. 8 and the replies.
+the window's too, are checked against Eq. 8 and the replies. A model that
+routes tokens to experts has its expert choices recorded through set-up
+(:mod:`perfbench.tap`), which the reference follows and judges
+(:mod:`perfbench.reference.route`); the window runs without the tap.
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ import typing
 
 import torch
 
-from perfbench import bench, feed, judge, trace, weights
-from perfbench.reference import federation
+from perfbench import bench, feed, judge, tap, trace, weights
+from perfbench.reference import federation, route
 from perfbench.reference.ops import exact_matmul
 
 
@@ -120,6 +123,14 @@ class _Run:
         self.captured = {"eval_loss": None, "delta": {}, "grad1": {},
                          "change": None, "lr": traffic["fed"]["local_lr"]}
         self.ssd_shapes = []
+        self.evals_run = 0
+        #: a routed model's expert choices, recorded through set-up
+        self.tap = None
+        if route.routes(cfg):
+            self.tap = tap.Tap(lambda: sim.cohort_plan.width)
+            self.tap.recording = True
+            self.tap.install()
+            self.captured["routes"] = self.tap.records
         self._wrap()
 
     @property
@@ -137,7 +148,14 @@ class _Run:
                 return [_placeholder(c, r) for c, r in jobs]
             if self.open:
                 self.steps += sum(r.k_next for _, r in jobs)
+            taps = self.tap is not None and self.tap.recording
+            if taps:
+                self.tap.fanout([(c.client_id, self.trained.get(c.client_id,
+                                                                0), r.k_next)
+                                 for c, r in jobs])
             out = run_locals(jobs)
+            if taps:
+                self.tap.done()
             if self.t0 is None:
                 self._capture_rounds(jobs, out)
             return out
@@ -170,7 +188,13 @@ class _Run:
                                              loss=float("nan"))
             if self.open:
                 self.evals += 1
+            taps = self.tap is not None and self.tap.recording
+            if taps:
+                self.tap.evaluation(self.evals_run)
+            self.evals_run += 1
             p = evaluate(now)
+            if taps:
+                self.tap.done()
             if self.captured["eval_loss"] is None:
                 self.captured["eval_loss"] = p.loss
             return p
@@ -182,6 +206,9 @@ class _Run:
     def _open(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize()
+        if self.tap is not None:
+            self.tap.recording = False
+            self.tap.remove()
         if self.dtrace is not None:
             self._count_ssd_launches()
             self.dtrace.start()
@@ -277,6 +304,7 @@ def execute(cell: bench.Cell, seed: int, seconds: float, traced: bool,
     from repro_torch.utils.device import resolve_device
 
     cfg, tr = cell.config, cell.traffic
+    route.require_checks(cfg, cell.limits)
     dev = resolve_device(device)
     exact_matmul()
     if tr["fed"]["local_lr_decay"] != 1.0 or tr["fed"]["k_initial"] != 2:
@@ -297,12 +325,14 @@ def execute(cell: bench.Cell, seed: int, seconds: float, traced: bool,
                                     dev)
     if hook is not None:
         hook(sim)
-    r = _Run(sim, cfg, tr, seed, seconds, traced, dev)
     ssd_launch = _ssd_launch()
+    r = _Run(sim, cfg, tr, seed, seconds, traced, dev)
     try:
         sim.run(max_time=tr["max_virtual_time"], eval_every=tr["eval_every"])
     finally:
         _restore_ssd_launch(ssd_launch)
+        if r.tap is not None:
+            r.tap.remove()
     if not r.closed:
         raise RuntimeError("the drain loop ended before the window closed")
     if dev.type == "cuda":
@@ -342,7 +372,7 @@ def run(cell: bench.Cell, seed: int, seconds: float, traced: bool,
     cfg, tr, ctx = cell.config, cell.traffic, p.ctx
     checks, failed = judge.fedtrain(cfg, tr, seed, p.device, p.drains,
                                     p.setup_drains, p.history, p.captured,
-                                    cell.limits)
+                                    cell.limits, notes=p.notes)
     ratio = _delta_ratio(p.history, cfg, seed, p.device)
     bad = sum(not (math.isfinite(h.gamma) and math.isfinite(h.delta_norm))
               for h in p.history)
