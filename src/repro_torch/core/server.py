@@ -495,12 +495,19 @@ class AsyncFedEDServer(AsyncServer):
         of one wire form ``mode``."""
         fed = self.fed
         with tracing.span("server.stack"):
-            snaps = [self.gmis.get(u.snapshot_iter)[0] for u in upds]
-            # a sharded server stacks each shard's snapshots on its own
-            # device
-            stales = _staged(
-                torch.stack(snaps) if self._mesh is None else
-                tuple(torch.stack(rows) for rows in zip(*snaps)))
+            found = [self.gmis.get(u.snapshot_iter) for u in upds]
+            # the norms read the ring's own snapshots in place (a sharded
+            # server's shard by shard), nothing copied. This list keeps each
+            # alive until the launch is queued; a snapshot that the drain's
+            # own append evicts is freed after that, and the allocator then
+            # hands its memory only to work queued behind the launch on the
+            # same stream.
+            stales = [snap for snap, _ in found]
+            if self._mesh is not None:
+                stales = tuple(zip(*stales))
+            tracing.count("server.stale_rows", len(found))
+            tracing.count("server.stale_snapshots",
+                          len({it for _, it in found}))
         # the kernel-emitted raw norms feed the screen in arrival order;
         # its scale factors fold into the schedule
         screen_fn = (None if self.screen is None else

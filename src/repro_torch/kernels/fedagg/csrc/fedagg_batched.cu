@@ -10,8 +10,8 @@
 // deltas. An int8 delta reads 1 byte per element where an f32 one reads 4,
 // so its byte counts below drop from 4B to B (plus a scale per 1024).
 //
-// norms_batched: for x_t (n,), stales xs (B, n) and deltas D (B, n) it emits,
-// with s_b = x_t - xs_b,
+// norms_batched: for x_t (n,), B stale rows xs_b (n,) and deltas D (B, n) it
+// emits, with s_b = x_t - xs_b,
 //   dist[b] = <s_b, s_b>, dn[b] = <D_b, D_b>, cross[b][k] = <s_b, D_k>,
 //   gram[k][l] = <D_k, D_l>.
 // It reads 4(B+1) + 4B bytes per element (4(B+1) + 2B with a bf16 delta)
@@ -52,6 +52,10 @@
 //     dist sums a warp per row, and the block writes its K-range's
 //     partials: the product column by column, so neighbouring lanes store
 //     to neighbouring addresses, then dist.
+// The stale rows are read where they lie, through a table of B row pointers
+// passed by value among the kernel's parameters (StaleRows): the server
+// hands the ring GMIS's own snapshots, and arrivals on one version pass the
+// same pointer, so no (B, n) stack of them is ever copied.
 // A second launch, programmatic-dependent on the first, folds the partials
 // in a fixed order: 32 neighbouring entries per block, 16 warps each
 // summing a 16th of the K-ranges in order, then the 16 sums in order;
@@ -116,6 +120,16 @@ __host__ __device__ inline int row_panels(int b) {
 __host__ __device__ inline int panels(int b) {
   return row_panels(b) * ((b + kPanel - 1) / kPanel);
 }
+
+// The B stale rows of a burst, one pointer each: a kernel parameter of
+// 8 kMaxB = 1 KB, within the 4 KB a launch's parameters may hold, so a launch
+// copies nothing to the device for it and may be captured in a CUDA graph.
+// Rows may repeat; entries from B on are unused. The kernel reads it as a
+// __grid_constant__, from the parameter space, even where its lambdas take its
+// address, so no thread copies it to local memory.
+struct StaleRows {
+  const float* p[kMaxB];
+};
 
 // Panel y of the (2B x B) output: rows [ra, ra + r) of [S; D] against
 // columns [ca, ca + c) of D, and how a block stages and tiles it.
@@ -274,8 +288,8 @@ norms_batched_fold(const float* __restrict__ partial, int gk, int b,
 template <typename L>
 __global__ void __launch_bounds__(kThreads, 2)
 norms_batched_tiles(const float* __restrict__ xt,
-                    const float* __restrict__ xs, L d, int b, int64_t n,
-                    float* __restrict__ partial) {
+                    const __grid_constant__ StaleRows xs, L d, int b,
+                    int64_t n, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   launch_dependents();
   const Panel p = panel_of(b, blockIdx.y);
@@ -310,7 +324,7 @@ norms_batched_tiles(const float* __restrict__ xt,
         const int m = s < p.r ? s : p.colbase + (s - p.r);
         float4* const dst = smem4 + to + m * stride4 + k4;
         if (row < b) {
-          cp_async<16>(dst, xs + row * n + 4 * g4);
+          cp_async<16>(dst, xs.p[row] + 4 * g4);
         } else {
           const L dr = d.row(row - b, n);
           if constexpr (L::kRawBytes == 16) {
@@ -598,13 +612,15 @@ apply_batched(const float* __restrict__ xt, L d,
 }
 
 template <typename L>
-int launch_norms_batched(const float* xt, const float* xs, L d, int b,
+int launch_norms_batched(const float* xt, const void* const* xs, L d, int b,
                          int64_t n, float* partial, float* out,
                          cudaStream_t stream) {
-  if (b < 1 || b > kMaxB) return (int)cudaErrorInvalidValue;
+  if (b < 1 || b > kMaxB || xs == nullptr) return (int)cudaErrorInvalidValue;
+  StaleRows rows = {};
+  for (int i = 0; i < b; ++i) rows.p[i] = static_cast<const float*>(xs[i]);
   const int gk = grid_k(n, b);
   norms_batched_tiles<L><<<dim3(gk, panels(b)), kThreads,
-                           norms_smem_bytes(b), stream>>>(xt, xs, d, b, n,
+                           norms_smem_bytes(b), stream>>>(xt, rows, d, b, n,
                                                           partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -701,30 +717,32 @@ int64_t fedagg_norms_batched_scratch(int64_t n, int b) {
 }
 
 // n is a multiple of 65536, 1 <= B <= kMaxB, and every pointer is 16-byte
-// aligned (the wrapper checks all three). out holds 2B + 2B^2 floats.
-int fedagg_norms_batched_f32(const void* xt, const void* xs, const void* d,
-                             int b, int64_t n, void* partial, void* out,
-                             void* stream) {
-  return launch_norms_batched((const float*)xt, (const float*)xs,
+// aligned (the wrapper checks all three). xs is a host array of B pointers,
+// one stale row of n floats each, copied into the launch's parameters. out
+// holds 2B + 2B^2 floats.
+int fedagg_norms_batched_f32(const void* xt, const void* const* xs,
+                             const void* d, int b, int64_t n, void* partial,
+                             void* out, void* stream) {
+  return launch_norms_batched((const float*)xt, xs,
                               F32Delta{(const float*)d}, b, n,
                               (float*)partial, (float*)out,
                               (cudaStream_t)stream);
 }
 
-int fedagg_norms_batched_bf16(const void* xt, const void* xs, const void* d,
-                              int b, int64_t n, void* partial, void* out,
-                              void* stream) {
-  return launch_norms_batched((const float*)xt, (const float*)xs,
+int fedagg_norms_batched_bf16(const void* xt, const void* const* xs,
+                              const void* d, int b, int64_t n, void* partial,
+                              void* out, void* stream) {
+  return launch_norms_batched((const float*)xt, xs,
                               BF16Delta{(const uint16_t*)d}, b, n,
                               (float*)partial, (float*)out,
                               (cudaStream_t)stream);
 }
 
 // The int8 wire form: q (B, n) int8 and s (B, n / 1024) f32 scales.
-int fedagg_norms_batched_int8(const void* xt, const void* xs, const void* q,
-                              const void* s, int b, int64_t n, void* partial,
-                              void* out, void* stream) {
-  return launch_norms_batched((const float*)xt, (const float*)xs,
+int fedagg_norms_batched_int8(const void* xt, const void* const* xs,
+                              const void* q, const void* s, int b, int64_t n,
+                              void* partial, void* out, void* stream) {
+  return launch_norms_batched((const float*)xt, xs,
                               I8Delta{(const int8_t*)q, (const float*)s}, b,
                               n, (float*)partial, (float*)out,
                               (cudaStream_t)stream);

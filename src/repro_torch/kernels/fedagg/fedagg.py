@@ -8,9 +8,10 @@
   int8 wire     fedagg_norms_q / fedagg_axpy_q : the same two sweeps with the
                 delta as int8 ``q`` and one f32 scale per ``QBLOCK`` elements,
                 dequantized in registers.
-  a burst of B  fedagg_norms_batched : one pass over x_t and B stacked
-                (stale, delta) pairs emitting every norm, cross term and
-                Gram entry the sequential-equivalence schedule needs;
+  a burst of B  fedagg_norms_batched : one pass over x_t, B stale rows read
+                where they lie and B stacked deltas, emitting every norm,
+                cross term and Gram entry the sequential-equivalence
+                schedule needs;
                 fedagg_apply_batched : one pass computing
                 x_t + sum_b eta_b * delta_b.
   int8 burst    fedagg_norms_batched_q / fedagg_apply_batched_q : the burst
@@ -41,11 +42,12 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.utils import tracing
 
 LANES = 128
 BLOCK_ROWS = 512
@@ -234,6 +236,21 @@ def _check_batch(b: int) -> None:
     if not 1 <= b <= MAX_BATCH:
         raise ValueError(f"a burst of {b} arrivals: the batched kernels take "
                          f"1 to {MAX_BATCH}")
+
+
+def _stale_rows(x_t: torch.Tensor, x_stales, b: int):
+    """The B stale snapshots of a burst as a list of (n,) f32 tensors beside
+    x_t: the given sequence of B rows, or the rows of a (B, n) tensor. Each
+    row is checked as a kernel input (contiguous, 16-byte aligned on CUDA);
+    rows may repeat."""
+    rows = list(x_stales)
+    if len(rows) != b:
+        raise ValueError(f"{len(rows)} stale rows for a burst of {b} "
+                         "arrivals")
+    for i, row in enumerate(rows):
+        build.check_tensor(f"x_stales[{i}]", row, _F32, x_t.shape,
+                           x_t.device)
+    return rows
 
 
 def _check_eta(eta: torch.Tensor, shape, x_t: torch.Tensor) -> None:
@@ -499,7 +516,7 @@ def fedagg_axpy_q(x_t: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-def norms_batched_packed(x_t: torch.Tensor, x_stales: torch.Tensor,
+def norms_batched_packed(x_t: torch.Tensor, x_stales: Sequence[torch.Tensor],
                          deltas: torch.Tensor,
                          scales: torch.Tensor = None) -> torch.Tensor:
     """The launch behind :func:`fedagg_norms_batched` and, for int8
@@ -507,19 +524,27 @@ def norms_batched_packed(x_t: torch.Tensor, x_stales: torch.Tensor,
     :func:`fedagg_norms_batched_q`: the four outputs packed in one
     (2B + 2B^2,) f32 tensor, [dist0_sq, dn_sq, cross, gram]
     (:func:`split_batched` unpacks it), so a caller copies them to the host
-    in one transfer. Counts as a launch of the wrapper of its delta form."""
+    in one transfer. ``x_stales`` is B (n,) f32 tensors, or a (B, n) tensor
+    as its rows: the kernel reads each where it lies, through a table of
+    row pointers, and a row may repeat. Counts as a launch of the wrapper
+    of its delta form."""
     b = deltas.shape[0] if isinstance(deltas, torch.Tensor) else 0
     _check_batch(b)
     n = x_t.shape[0] if isinstance(x_t, torch.Tensor) and x_t.dim() else 0
     quant = scales is not None
-    _check_inputs(x_t, [("x_stales", x_stales, _F32, (b, n))]
-                  + ([("deltas", deltas, (torch.int8,), (b, n)),
-                      ("scales", scales, _F32, (b, n // QBLOCK))] if quant
-                     else [("deltas", deltas, _DELTA_DTYPES, (b, n))]))
+    _check_inputs(x_t, [("deltas", deltas, (torch.int8,), (b, n)),
+                        ("scales", scales, _F32, (b, n // QBLOCK))] if quant
+                  else [("deltas", deltas, _DELTA_DTYPES, (b, n))])
+    rows = _stale_rows(x_t, x_stales, b)
     if x_t.device.type == "cpu":
+        # the plain versions take a (B, n) stack: on the CPU the rows are
+        # copied into one, counted as the server's staging copies are (each
+        # byte read once and written once); the kernel reads them in place
+        xs = torch.stack(rows)
+        tracing.count("server.copy_bytes", 8 * xs.numel())
         dist, dn, cross, gram = (
-            norms_batched_q_plain(x_t, x_stales, deltas, scales) if quant
-            else norms_batched_plain(x_t, x_stales, deltas))
+            norms_batched_q_plain(x_t, xs, deltas, scales) if quant
+            else norms_batched_plain(x_t, xs, deltas))
         return torch.cat([dist, dn, cross.reshape(-1), gram.reshape(-1)])
     libs = load_libraries()
     blib = libs[1]
@@ -527,31 +552,32 @@ def norms_batched_packed(x_t: torch.Tensor, x_stales: torch.Tensor,
     out_len = 2 * b + 2 * b * b
     buf = torch.empty(out_len + blib.fedagg_norms_batched_scratch(n, b),
                       dtype=torch.float32, device=x_t.device)
+    # the launcher copies this host table into the kernel's parameters
+    table = (ctypes.c_void_p * b)(*(row.data_ptr() for row in rows))
     tail = (b, n, buf.data_ptr() + 4 * out_len, buf.data_ptr(),
             build.stream(x_t.device))
     if quant:
         err = blib.fedagg_norms_batched_int8(
-            x_t.data_ptr(), x_stales.data_ptr(), deltas.data_ptr(),
-            scales.data_ptr(), *tail)
+            x_t.data_ptr(), table, deltas.data_ptr(), scales.data_ptr(),
+            *tail)
         _raise_on(err, "fedagg_norms_batched_q")
         fedagg_norms_batched_q.launches += 1
     else:
         fn = (blib.fedagg_norms_batched_f32 if deltas.dtype == torch.float32
               else blib.fedagg_norms_batched_bf16)
-        err = fn(x_t.data_ptr(), x_stales.data_ptr(), deltas.data_ptr(),
-                 *tail)
+        err = fn(x_t.data_ptr(), table, deltas.data_ptr(), *tail)
         _raise_on(err, "fedagg_norms_batched")
         fedagg_norms_batched.launches += 1
     return buf[:out_len]
 
 
-def fedagg_norms_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
+def fedagg_norms_batched(x_t: torch.Tensor, x_stales: Sequence[torch.Tensor],
                          deltas: torch.Tensor):
     """One sweep over B arrivals: (dist0_sq (B,), dn_sq (B,), cross (B, B),
     gram (B, B)) f32, with cross[b, k] = <x_t - x_stales[b], deltas[k]> and
-    gram[k, l] = <deltas[k], deltas[l]>. x_t (n,) f32, x_stales (B, n) f32,
-    deltas (B, n) f32 or bf16, n a multiple of ``BLOCK``, 1 <= B <=
-    ``MAX_BATCH``.
+    gram[k, l] = <deltas[k], deltas[l]>. x_t (n,) f32, x_stales B (n,) f32
+    tensors or a (B, n) one (as its rows; a row may repeat), deltas (B, n)
+    f32 or bf16, n a multiple of ``BLOCK``, 1 <= B <= ``MAX_BATCH``.
 
     Replaces the JAX package's
     ``kernels/fedagg/fedagg.py::fedagg_norms_batched``
@@ -560,10 +586,12 @@ def fedagg_norms_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
     flop/byte at B = 23, under the f32 ridge. The kernel is a split-K
     product [S; D] D^T (S the B drifts): each block takes a contiguous
     range of the n elements and a panel of at most 64 x 64 outputs,
-    stages its rows in double-buffered shared memory with the next stage's
-    loads in flight, and each thread accumulates a 4 x 4 register tile
-    over its range with no per-stage reduction; dist is summed by the
-    threads that stage the drifts. A second, programmatic-dependent launch
+    stages its rows (each stale row through its pointer in a table passed
+    among the launch's parameters, so no stack of the stales is copied) in
+    double-buffered shared memory with the next stage's loads in flight,
+    and each thread accumulates a 4 x 4 register tile over its range with
+    no per-stage reduction; dist is summed by the threads that stage the
+    drifts. A second, programmatic-dependent launch
     folds the blocks' partials, a warp per output in a fixed order.
     Bitwise repeatable, no float atomics, no TF32.
     """
@@ -608,8 +636,9 @@ def fedagg_apply_batched(x_t: torch.Tensor, deltas: torch.Tensor,
     return out
 
 
-def fedagg_norms_batched_q(x_t: torch.Tensor, x_stales: torch.Tensor,
-                           qs: torch.Tensor, scales: torch.Tensor):
+def fedagg_norms_batched_q(x_t: torch.Tensor,
+                           x_stales: Sequence[torch.Tensor], qs: torch.Tensor,
+                           scales: torch.Tensor):
     """:func:`fedagg_norms_batched` with the B deltas in int8 wire form:
     ``qs`` (B, n) int8 and ``scales`` (B, n // QBLOCK) f32. Every output is
     of the DEQUANTIZED deltas, exactly what :func:`fedagg_apply_batched_q`

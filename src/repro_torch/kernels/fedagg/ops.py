@@ -66,14 +66,16 @@ def flat_aggregate_displacement(x_t: torch.Tensor, disp: torch.Tensor,
     return new, gamma, eta, dist, dnorm
 
 
-def flat_aggregate_batched(x_t: torch.Tensor, x_stales: torch.Tensor,
+def flat_aggregate_batched(x_t: torch.Tensor,
+                           x_stales: Sequence[torch.Tensor],
                            deltas: torch.Tensor, *, lam: float, eps: float,
                            cap: float = 0.0, screen=None):
     """B concurrent arrivals in two sweeps, sequential-equivalent to B
     one-at-a-time :func:`flat_aggregate` calls (see
     ``aggregation.sequential_batch_schedule``).
 
-    x_t (n,), x_stales (B, n), deltas (B, n) f32 or bf16, n a BLOCK
+    x_t (n,), x_stales B (n,) f32 tensors (read where they lie; a row may
+    repeat) or a (B, n) one, deltas (B, n) f32 or bf16, n a BLOCK
     multiple. One norms-batched launch; one copy of its four outputs,
     packed in one buffer, to the host; the schedule in f64 on the host;
     one copy of the etas back; one apply-batched launch (the spans
@@ -137,7 +139,8 @@ def flat_aggregate_displacement_q(x_t: torch.Tensor, disp: torch.Tensor,
     return new, gamma, eta, dist, dnorm
 
 
-def flat_aggregate_batched_q(x_t: torch.Tensor, x_stales: torch.Tensor,
+def flat_aggregate_batched_q(x_t: torch.Tensor,
+                             x_stales: Sequence[torch.Tensor],
                              qs: torch.Tensor, qscales: torch.Tensor, *,
                              lam: float, eps: float, cap: float = 0.0,
                              screen=None):
@@ -172,11 +175,11 @@ def asyncfeded_aggregate_batched_pallas(
         x_t: PyTree, x_stales: Sequence[PyTree], deltas: Sequence[PyTree], *,
         lam: float, eps: float, cap: float = 0.0
 ) -> Tuple[PyTree, Any, Any, Any, Any]:
-    """Batched tree entry point: stacks B (stale, delta) pairs and drains
-    them through the batched sweeps. Returns (new_params, etas, gammas,
-    dists, dnorms)."""
+    """Batched tree entry point: flattens B (stale, delta) pairs, stacks
+    the deltas and drains them through the batched sweeps. Returns
+    (new_params, etas, gammas, dists, dnorms)."""
     spec = pt.FlatSpec(x_t, block=_BLOCK)
-    xs = torch.stack([spec.flatten(t) for t in x_stales])
+    xs = [spec.flatten(t) for t in x_stales]
     d = torch.stack([spec.flatten(t) for t in deltas])
     new_flat, etas, gammas, dists, dnorms, _ = flat_aggregate_batched(
         spec.flatten(x_t), xs, d, lam=lam, eps=eps, cap=cap)

@@ -26,8 +26,9 @@ of the new vector equals the unsharded AXPY or apply of that shard at the
 same eta(s) to the bit: both are elementwise.
 
 Signatures are the ``ops.py`` twins', with every flat vector, stack and
-scale vector given as its shard tuple; the new vector comes back as a
-shard tuple.
+scale vector given as its shard tuple, and a burst's stale rows as one
+sequence of B row shards per shard; the new vector comes back as a shard
+tuple.
 """
 from __future__ import annotations
 
@@ -136,7 +137,8 @@ def flat_aggregate_batched(x_t: Shards, x_stales: Shards, deltas: Shards, *,
     partials summed in shard order and copied to the host once, the
     schedule (and the optional screen, on the summed norms) on the host,
     one copy of the etas per device, per shard an apply. Same return
-    signature, the new vector as shards."""
+    signature, the new vector as shards. ``x_stales[s]`` holds shard s of
+    each of the B stale snapshots, read where they lie."""
     return _batched(x_t, (x_stales, deltas), fedagg.fedagg_apply_batched,
                     deltas[0].shape[0], lam, eps, cap, screen)
 

@@ -237,6 +237,36 @@ class TestWrapperChecks:
             fedagg.fedagg_norms_batched(x, xs, d)
             fedagg.fedagg_apply_batched(x, d, etas)
 
+    @pytest.mark.parametrize("case", ["length", "f64", "device", "strided",
+                                      "count", "b_too_big"])
+    def test_rejects_a_stale_row(self, case):
+        """The stale rows come one tensor each: a row of the wrong length,
+        dtype or device, a non-contiguous row, a count of rows other than
+        the burst's and a burst past MAX_BATCH are refused (a misaligned
+        row too, on the card: tests/test_torch_fedagg_cuda.py)."""
+        b, n = 3, BLOCK
+        x, d = torch.zeros(n), torch.zeros(b, n)
+        rows = [torch.zeros(n) for _ in range(b)]
+        if case == "length":
+            rows[1] = torch.zeros(n - 4)
+        elif case == "f64":
+            rows[1] = rows[1].double()
+        elif case == "device":
+            rows[1] = torch.zeros(n, device="meta")
+        elif case == "strided":
+            rows[1] = torch.zeros(2 * n)[::2]
+        elif case == "count":
+            rows = rows[:2]
+        else:
+            b = fedagg.MAX_BATCH + 1
+            rows, d = [rows[0]] * b, torch.zeros(b, n)
+        with pytest.raises((TypeError, ValueError)):
+            fedagg.fedagg_norms_batched(x, rows, d)
+        q = torch.zeros(d.shape, dtype=torch.int8)
+        with pytest.raises((TypeError, ValueError)):
+            fedagg.fedagg_norms_batched_q(
+                x, rows, q, torch.ones(d.shape[0], n // fedagg.QBLOCK))
+
     def test_int8_burst_raises_naming_b7(self):
         """The int8 burst drain (ROADMAP.md B7) runs: at B = 2, 15 and 24
         (the int8 knee) ops.flat_aggregate_batched_q gives the reference's
@@ -326,6 +356,28 @@ class TestInt8AgainstPallas:
         # dequantized deltas, to the bit
         assert torch.equal(got, fedagg.apply_batched_plain(
             tx, torch.from_numpy(dequant(jq, js)), torch.from_numpy(etas)))
+
+
+@pytest.mark.parametrize("delta", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [2, 15, 23])
+def test_stale_rows_as_tensors_equal_the_stack(b, delta):
+    """The stale rows given as B distinct tensors, as the rows of a (B, n)
+    stack, and as one tensor repeated on every row give the outputs of the
+    same rows passed as a stack, to the bit."""
+    if delta == "int8":
+        _, (x, xs, q, sc) = q_inputs(b, BLOCK, seed=30 + b)
+        norms = lambda rows: fedagg.fedagg_norms_batched_q(x, rows, q, sc)
+    else:
+        dtype = jnp.float32 if delta == "f32" else jnp.bfloat16
+        _, (x, xs, d) = inputs(b, BLOCK, dtype, seed=30 + b)
+        norms = lambda rows: fedagg.fedagg_norms_batched(x, rows, d)
+    same = lambda got, want: all(torch.equal(g, w)
+                                 for g, w in zip(got, want))
+    want = norms(xs)
+    assert same(norms([row.clone() for row in xs]), want)
+    assert same(norms(list(xs.unbind(0))), want)
+    assert same(norms(tuple(xs)), want)
+    assert same(norms([xs[1]] * b), norms(xs[1].expand(b, -1).contiguous()))
 
 
 @pytest.mark.parametrize("b", [1, 2, 8, 23, 24, 128])

@@ -314,6 +314,32 @@ def test_server_paths_on_cuda_match_cpu(mode):
                                rtol=1e-5, atol=1e-6)
 
 
+@requires_cuda
+def test_burst_on_cuda_stages_no_stale_row():
+    """With the recorder on, a burst of three on the card moves each
+    delta's leaves into its row of the delta stack and nothing else: the
+    norms read the stale snapshots in place, so ``server.copy_bytes`` holds
+    no stale row (the CPU's plain norms copy them into a stack)."""
+    from repro_torch.utils import tracing
+    g = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(33, 7, generator=g).cuda(),
+              "b": [torch.randn(129, generator=g).cuda()]}
+    srv = make_server("asyncfeded", params, FedConfig(lam=1.0, eps=1.0),
+                      backend="pallas")
+    its = [srv.on_connect(c).iteration for c in range(3)]
+    upds = [ClientUpdate(c, its[c], 2, pt.tree_map(
+        lambda t: 0.05 * torch.randn_like(t), params)) for c in range(3)]
+    tracing.enable()
+    try:
+        srv.on_update_batch(upds)
+    finally:
+        rec = tracing.collect()
+    assert rec.counters["server.copy_bytes"] == 3 * 4 * (BLOCK + 33 * 7
+                                                         + 129)
+    assert (rec.counters["server.stale_rows"],
+            rec.counters["server.stale_snapshots"]) == (3, 1)
+
+
 def _batched_wire(b, n, delta, seed):
     """(x, xs, deltas, scales) for the batched norms at (B, n): f32 or bf16
     deltas with scales None, or int8 wire rows (one all-zero scale block
@@ -349,6 +375,66 @@ def test_batched_norms_split_k(b, n, delta):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     assert torch.equal(got[3], got[3].T)
     assert torch.equal(got[1], torch.diagonal(got[3]))
+
+
+def _norms_of(x, d, sc):
+    """The batched norms (or their int8 twin) of the given stale rows."""
+    if sc is None:
+        return lambda rows: fedagg.fedagg_norms_batched(x, rows, d)
+    return lambda rows: fedagg.fedagg_norms_batched_q(x, rows, d, sc)
+
+
+@requires_cuda
+@pytest.mark.parametrize("delta", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n", [BLOCK, 16 * BLOCK], ids=["65536", "2^20"])
+@pytest.mark.parametrize("b", [2, 15, 23])
+def test_stale_rows_read_in_place(b, n, delta):
+    """The kernel reads each stale row through its pointer: rows given as
+    B tensors of their own, as the rows of a (B, n) stack, and as one
+    tensor repeated on every row give the outputs of the same rows passed
+    as a stack, to the bit; a call is one launch of the wrapper, two
+    kernel nodes in a CUDA graph, whose replay gives the same bits."""
+    x, xs, d, sc = _batched_wire(b, n, delta, seed=b + n)
+    norms = _norms_of(x, d, sc)
+    same = lambda got, want: all(torch.equal(g, w)
+                                 for g, w in zip(got, want))
+    fedagg.reset_launches()
+    want = norms(xs)
+    assert (fedagg.fedagg_norms_batched.launches
+            + fedagg.fedagg_norms_batched_q.launches) == 1
+    own = [row.clone() for row in xs]
+    assert len({row.data_ptr() for row in own}) == b
+    assert same(norms(own), want)
+    assert same(norms(list(xs.unbind(0))), want)
+    assert same(norms([xs[1]] * b), norms(xs[1].expand(b, -1).contiguous()))
+    types, replayed = _captured_node_types(
+        lambda: fedagg.norms_batched_packed(x, own, d, sc))
+    assert types == [0, 0]
+    assert same(fedagg.split_batched(replayed, b), want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", ["misaligned", "host", "b_too_big"])
+def test_batched_norms_refuse_a_stale_row(case):
+    """A stale row that is not 16-byte aligned or not on the card, and a
+    table of more rows than the kernels take, are refused before a launch."""
+    b, n = 3, BLOCK
+    x, xs, d = batched_inputs(b, n, torch.float32)
+    rows = list(xs)
+    if case == "misaligned":
+        rows[1] = torch.zeros(n + 1, device="cuda")[1:]
+        match = "aligned"
+    elif case == "host":
+        rows[1] = rows[1].cpu()
+        match = "expected"
+    else:
+        b = fedagg.MAX_BATCH + 1
+        rows, d, match = [rows[0]] * b, d[:1].expand(b, -1).contiguous(), \
+            "arrivals"
+    fedagg.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        fedagg.fedagg_norms_batched(x, rows, d)
+    assert fedagg.fedagg_norms_batched.launches == 0
 
 
 @requires_cuda

@@ -14,6 +14,8 @@ XLA's dot (tests/test_torch_fedagg_batched.py): they are held to the
 reference's own tolerance for batch against sequential, rtol 1e-4 on
 params with atol 1e-6.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -114,11 +116,13 @@ class TestServerContract:
 
     def test_stored_snapshots_never_change(self):
         """The ring GMIS holds the flat vector of every version and the
-        clients hold views of it: an aggregation must never write into
+        clients hold views of it: an aggregation, single or batched (whose
+        norms read the snapshots in place), must never write into
         either."""
         srv = make_server("asyncfeded", self.params(), self.fed(),
                           backend="pallas")
         rep = srv.on_connect(0)
+        other = srv.on_connect(1)
         first = srv.gmis.get(1)[0]
         first_copy = first.clone()
         view = rep.params["a"].clone()
@@ -126,9 +130,17 @@ class TestServerContract:
             rep = srv.on_update(ClientUpdate(0, rep.iteration, 5,
                                              params_from_numpy(mk_delta(step),
                                                                device="cpu")))
+        assert not torch.equal(rep.params["a"], view)
+        last = srv.gmis.get(rep.iteration)[0]
+        kept = [last.clone(), rep.params["a"].clone()]
+        srv.on_update_batch([ClientUpdate(c, it, 5, params_from_numpy(
+            mk_delta(10 + c), device="cpu"))
+            for c, it in ((0, rep.iteration), (1, other.iteration))])
         assert torch.equal(srv.gmis.get(1)[0], first_copy)
         assert srv.gmis.get(1)[0] is first
-        assert not torch.equal(rep.params["a"], view)
+        assert srv.gmis.get(rep.iteration)[0] is last
+        assert torch.equal(last, kept[0])
+        assert torch.equal(rep.params["a"], kept[1])
 
     def test_backend_validation(self):
         with pytest.raises(ValueError):
@@ -225,15 +237,16 @@ class TestServerContract:
 
 
 # ------------------------------------------------- bursts and wire forms --
+def port_params():
+    return params_from_numpy(jax.tree.map(np.asarray, mk_params()),
+                             device="cpu")
+
+
 def both_servers(fed_kw, backend="pallas", gmis_mode="ring"):
     ref = jmake("asyncfeded", mk_params(), JFedConfig(**fed_kw),
                 gmis_mode=gmis_mode, backend=backend)
-    port = make_server("asyncfeded",
-                       params_from_numpy(jax.tree.map(np.asarray,
-                                                      mk_params()),
-                                         device="cpu"),
-                       FedConfig(**fed_kw), gmis_mode=gmis_mode,
-                       backend=backend)
+    port = make_server("asyncfeded", port_params(), FedConfig(**fed_kw),
+                       gmis_mode=gmis_mode, backend=backend)
     return ref, port
 
 
@@ -399,6 +412,61 @@ class TestBurstDrain:
             its.update({u.client_id: r.iteration
                         for u, r in zip(ups, replies)})
         assert srv.t == 8 and len(kept) == 3
+
+    @pytest.mark.parametrize("mode", ["off", "bf16", "int8"])
+    def test_norms_read_the_rings_own_snapshots(self, mode, monkeypatch):
+        """A batched drain hands the norms the ring's own snapshot tensors
+        (two arrivals on one version pass the same one), not a (B, n)
+        stack of copies."""
+        srv = make_server("asyncfeded", port_params(), FedConfig(
+            lam=1.0, eps=1.0, delta_compression=mode), backend="pallas")
+        its = {c: srv.on_connect(c).iteration for c in range(3)}
+        srv.on_update(ClientUpdate(0, its[0], 5,
+                                   wire(mode, mk_delta(1), False)))
+        its[0] = srv.on_connect(0).iteration
+        seen = []
+        packed = fedagg.norms_batched_packed
+
+        def record(x_t, x_stales, *a):
+            seen.append(x_stales)
+            return packed(x_t, x_stales, *a)
+        monkeypatch.setattr(fedagg, "norms_batched_packed", record)
+        ring = {t: srv.gmis.get(t)[0] for t in (1, 2)}
+        upds = [ClientUpdate(c, its[c], 5,
+                             wire(mode, mk_delta(2 + c), False))
+                for c in (0, 1, 2)]
+        srv.on_update_batch(upds)
+        (stales,) = seen
+        assert not isinstance(stales, torch.Tensor)
+        assert [s is ring[u.snapshot_iter] for s, u in zip(stales, upds)] \
+            == [True] * 3
+        assert stales[1] is stales[2]
+
+    @pytest.mark.parametrize("mode", ["off", "int8"])
+    def test_drain_evicting_what_it_read(self, mode):
+        """On a ring of depth 2 a drain reads a version that its own append
+        evicts: its records and model are those of the same drains on a
+        deep ring, to the bit."""
+        runs = []
+        for depth in (2, 16):
+            srv = make_server("asyncfeded", port_params(), FedConfig(
+                lam=1.0, eps=1.0, gmis_depth=depth, delta_compression=mode),
+                backend="pallas")
+            its = {c: srv.on_connect(c).iteration for c in range(3)}
+            for seed, drain in enumerate(([0], [0, 1, 2], [2, 1])):
+                oldest = next(iter(srv.gmis._store))
+                replies = srv.on_update_batch(
+                    [ClientUpdate(c, its[c], 5, wire(mode, mk_delta(
+                        5 * seed + c), False)) for c in drain])
+                its.update({c: r.iteration for c, r in zip(drain, replies)})
+                if depth == 2 and seed == 1:
+                    # the drain read version 1, which its append evicted
+                    assert oldest == 1 and 1 not in srv.gmis._store
+            runs.append(srv)
+        shallow, deep = runs
+        assert [dataclasses.astuple(r) for r in shallow.history] == \
+            [dataclasses.astuple(r) for r in deep.history]
+        assert torch.equal(shallow._flat.vec, deep._flat.vec)
 
     @pytest.mark.parametrize("case", ["displacement", "cosine", "mixed",
                                       "pytree"])

@@ -7,7 +7,9 @@ counters the program opens with it, on the CPU.
   off.
 * The program: a flat ring server's burst drain opens its phases in order
   inside ``server.drain``; ``server.copy_bytes`` is the bytes its
-  staging copies read and write; ``gmis.clamps`` counts the lookups
+  staging copies read and write; ``server.stale_rows`` and
+  ``server.stale_snapshots`` count the stale rows its norms read in place
+  and the distinct snapshots among them; ``gmis.clamps`` counts the lookups
   a shallow ring clamps; both client engines count ``client.steps`` as the
   sum of the real rows' K; and a simulation's history, replies and
   evaluations are the same with the recorder on and off.
@@ -156,13 +158,17 @@ def test_burst_drain_opens_its_phases_in_order(dtype):
                                       "server.apply", "server.record"]
     assert all(a.host_close <= b.host_open for a, b in zip(kids, kids[1:]))
     n_pad = fedagg.BLOCK
-    # per update: its stale snapshot read into its row of the stale stack
-    # (4 n_pad each way), its delta's leaves read (129 of them bf16 in
-    # the bf16 tree) and written once, cast, into its row of the delta
-    # stack (4 n_pad)
+    # per update: its delta's leaves read (129 of them bf16 in the bf16
+    # tree) and written once, cast, into its row of the delta stack
+    # (4 n_pad); the server hands its stale snapshot in place, and on the
+    # CPU the plain norms copy it into their (B, n) stack (4 n_pad each
+    # way), which the card's kernel does not
     leaves = 4 * 33 * 7 + 129 * (2 if dtype == torch.bfloat16 else 4)
     assert rec.counters["server.copy_bytes"] == 3 * (3 * 4 * n_pad
                                                      + leaves)
+    # three rows, all on the one version the clients connected at
+    assert rec.counters["server.stale_rows"] == 3
+    assert rec.counters["server.stale_snapshots"] == 1
     assert rec.counters["gmis.lookups"] == 3
     assert "gmis.clamps" not in rec.counters
 
