@@ -30,6 +30,7 @@ from repro_torch.core import compression as tc
 from repro_torch.core.server import ClientUpdate
 from repro_torch.core.simulator import FederatedSimulation
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def np_tree(seed, scale=0.05):

@@ -17,6 +17,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core.adaptive_k import AdaptiveK, update_k
 from repro_torch.core.gmis import DisplacementGMIS, RingGMIS
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def T(v):

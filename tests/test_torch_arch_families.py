@@ -45,16 +45,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import params as TP
 from repro_torch.utils import pytree as pt
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs (small ops; the xdist
-    workers share the cores). Restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 ARCHS = ["granite-34b", "phi3-medium-14b", "qwen2-moe-a2.7b",

@@ -35,6 +35,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import params as TP
 from repro_torch.models import ssm as TS
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["recurrentgemma-2b", "h2o-danube-1.8b", "mamba2-1.3b"]
 #: the architectures with attention layers (a sliding window to ring)

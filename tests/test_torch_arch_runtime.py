@@ -36,18 +36,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import budget, tasks
 from repro_torch.core.simulator import FederatedSimulation
 from repro_torch.launch import train
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs: its steps are small, and
-    with pytest-xdist's workers sharing the cores, every worker's default
-    pool of one thread per core spins at each op's barrier. Restored after,
-    for the other modules of the worker."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 #: (arch, seq_len): the reference's tiny arch, and mamba2 over two of its

@@ -44,18 +44,7 @@ from repro_torch.kernels.swa_attn import ops as swa_ops
 from repro_torch.kernels.swa_attn.swa_attn import swa_decode_attention
 from repro_torch.models import layers as TL
 from repro_torch.utils import pytree as pt
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs: its steps are small, and
-    with pytest-xdist's workers sharing the cores, every worker's default
-    pool of one thread per core spins at each op's barrier. Restored after,
-    for the other modules of the worker."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 ARCHS = ["h2o-danube-1.8b", "mamba2-1.3b", "recurrentgemma-2b"]

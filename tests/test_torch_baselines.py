@@ -44,6 +44,7 @@ from repro_torch.core import compression as tc
 from repro_torch.core.server import ClientUpdate, make_server
 from repro_torch.core.simulator import FederatedSimulation, run_comparison
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -23,6 +23,7 @@ from repro_torch import configs as TC
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.server import AsyncFedEDServer, ClientUpdate
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jparams(name, seed=0):

@@ -59,18 +59,9 @@ from repro_torch.core.simulator import FederatedSimulation
 from repro_torch.data.pipeline import load_task_datasets
 from repro_torch.launch import mesh
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 PODS = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs (pytest-xdist's workers
-    share the cores); restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jparams(seed=0):

@@ -26,6 +26,7 @@ from repro_torch.core import compression as tc
 from repro_torch.core.client import Client
 from repro_torch.core.server import ClientUpdate
 from repro_torch.kernels.fedagg import fedagg, ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = fedagg.BLOCK
 QBLOCK = fedagg.QBLOCK

@@ -14,6 +14,7 @@ from repro import configs as C
 from repro.data import pipeline as jpipe
 from repro_torch import configs as TC
 from repro_torch.data import pipeline as tpipe
+from torch_threads import one_torch_thread  # noqa: F401
 
 TASKS = ("synthetic-1-1", "femnist", "shakespeare")
 

@@ -33,6 +33,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro import configs as C
 from repro.launch import analytic as JA
 from repro.sharding import specs as JSH
+from torch_threads import one_torch_thread  # noqa: F401
 
 _xla_flags = os.environ.get("XLA_FLAGS")
 from repro.launch import dryrun as JD  # noqa: E402  (sets XLA_FLAGS)
@@ -52,16 +53,6 @@ from repro_torch.utils import pytree as pt  # noqa: E402
 
 MESHES = [(("data", "model"), (16, 16)),
           (("pod", "data", "model"), (2, 16, 16))]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs (small steps; the xdist
-    workers share the cores). Restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def ref_mesh(axes, shape):

@@ -23,6 +23,7 @@ from repro.core import aggregation as jagg
 from repro.kernels.fedagg import fedagg as jfed
 from repro.kernels.fedagg import ops as jops
 from repro_torch.kernels.fedagg import fedagg, ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 65536
 LAM, EPS = 2.0, 0.5

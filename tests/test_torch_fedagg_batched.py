@@ -32,6 +32,7 @@ from repro.kernels.fedagg import ref as jref
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import screening
 from repro_torch.kernels.fedagg import fedagg, ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 65536
 LAM, EPS = 2.0, 0.5

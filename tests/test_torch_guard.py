@@ -4,6 +4,10 @@ Two checks: importing every module of ``repro_torch`` in a fresh process in
 which ``import jax`` fails, and a scan of every ``.py`` of the port, of
 ``chip_smoke.py`` and of the examples' twins (``examples/*_torch.py``) for an
 import line of ``jax`` or ``repro``.
+
+Besides, every port test module takes the suite's one thread rule,
+``tests/torch_threads.py``, apart from the modules ``THREAD_RULE_EXEMPT``
+names with a reason.
 """
 import os
 import re
@@ -12,6 +16,8 @@ import sys
 from pathlib import Path
 
 import pytest
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -65,3 +71,39 @@ def test_sharded_modules_are_guarded(module):
     """The model-sharding and pod-engine modules are among the files both
     checks above cover."""
     assert PORT / module in FILES
+
+
+THREAD_RULE = "from torch_threads import one_torch_thread  # noqa: F401"
+_CARD_ONLY = ("skips on the CPU; on the card, in one process where no pool "
+              "contends, its CPU-side comparisons ran slower at one thread "
+              "(the six card-only modules 59.1 -> 67.1 s, 4 runs each)")
+#: port test modules that run at torch's default intra-op pool, and why
+THREAD_RULE_EXEMPT = {
+    "test_torch_arch_cuda.py": _CARD_ONLY,
+    "test_torch_arch_families_cuda.py": _CARD_ONLY,
+    "test_torch_cohort_cuda.py": _CARD_ONLY,
+    "test_torch_fedagg_cuda.py": _CARD_ONLY,
+    "test_torch_sharded_cuda.py": _CARD_ONLY,
+    "test_torch_steps_cuda.py": _CARD_ONLY,
+    "test_torch_models_client.py":
+        "at one thread test_client_run_local[femnist-10] crosses a max-pool "
+        "near-tie of the FEMNIST CNN (first round, step 3: a second-pool "
+        "window whose top two inputs the reference holds 9 ulps apart), which "
+        "2, 4 and 8 threads do not; the conv's reduction order decides it "
+        "(ROADMAP F3)",
+}
+
+
+def test_port_test_modules_take_the_thread_rule():
+    """Each ``tests/test_torch_*.py`` imports the shared fixture and sets no
+    thread count of its own; an exempt module does neither."""
+    offenders = []
+    for path in sorted((ROOT / "tests").glob("test_torch_*.py")):
+        text = path.read_text()
+        takes = THREAD_RULE in text.splitlines()
+        if (takes == (path.name in THREAD_RULE_EXEMPT)
+                or re.search(r"set_num_threads\s*\(", text)):
+            offenders.append(path.name)
+    assert not offenders, offenders
+    assert set(THREAD_RULE_EXEMPT) <= {
+        p.name for p in (ROOT / "tests").glob("test_torch_*.py")}

@@ -29,16 +29,7 @@ from repro_torch import configs as TC
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import moe as TMOE
 from repro_torch.utils import pytree as pt
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs (small ops; the xdist
-    workers share the cores). Restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 #: (B, S) of the inputs, and the group size that cuts their 32 tokens into

@@ -33,6 +33,7 @@ from repro.optim import optimizers as JOO
 from repro_torch import optim as TO
 from repro_torch.optim import optimizers as TOO
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 20
 SCHED_STEPS = np.arange(0, 1001, dtype=np.int32)

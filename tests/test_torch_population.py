@@ -34,18 +34,7 @@ from repro_torch.core.behavior import ClientBehavior
 from repro_torch.core.population import EwmaStore, PopulationState
 from repro_torch.core.screening import NormScreen
 from repro_torch.core.simulator import FederatedSimulation
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs: its steps are small, and
-    with pytest-xdist's workers sharing the cores, every worker's default
-    pool of one thread per core spins at each op's barrier. Restored after,
-    for the other modules of the worker."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 MODEL_BYTES = 10_000

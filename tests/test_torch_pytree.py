@@ -15,6 +15,7 @@ from repro.models import small as jsmall
 from repro.utils import pytree as jpt
 from repro_torch.convert import params_from_numpy
 from repro_torch.utils import pytree as tpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = 65536
 

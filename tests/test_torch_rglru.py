@@ -27,6 +27,7 @@ from repro_torch import configs as TC
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.rglru import ops, rglru
 from repro_torch.models import rglru as TRG
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -28,6 +28,7 @@ from repro_torch.kernels.rglru import rglru
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.swa_attn import swa_attn
 from repro_torch.launch import serve as tserve
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH, BATCH, SEED = "recurrentgemma-2b", 2, 0
 SSD_ARCH = "mamba2-1.3b"

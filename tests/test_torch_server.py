@@ -33,6 +33,7 @@ from repro_torch.core.server import (AsyncFedEDServer, ClientUpdate,
                                      make_server)
 from repro_torch.kernels.fedagg import fedagg, ops
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def mk_params(seed=0):

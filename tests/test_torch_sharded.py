@@ -49,18 +49,9 @@ from repro_torch.kernels.fedagg import fedagg, ops, sharded
 from repro_torch.launch import mesh
 from repro_torch.sharding import specs
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 BLOCK = fedagg.BLOCK
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs (pytest-xdist's workers
-    share the cores); restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # --------------------------------------------------------------- ops --

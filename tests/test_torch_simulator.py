@@ -24,6 +24,7 @@ from repro_torch import configs as TC
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.simulator import FederatedSimulation
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 MAX_UPDATES = 30
 

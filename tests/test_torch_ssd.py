@@ -23,6 +23,7 @@ from repro.kernels.ssd.ssd import ssd_scan as jkernel_scan
 from repro.models import ssm as JS
 from repro_torch.kernels.ssd import ops, ssd
 from repro_torch.models import ssm as TS
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = ATOL = 1e-4
 T = torch.from_numpy

@@ -35,19 +35,10 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.launch import steps as TS
 from repro_torch.models import model as TM
 from repro_torch.utils import pytree as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, S = 2, 64
 RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while this module runs (small steps; the xdist
-    workers share the cores). Restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def port_cfg(jcfg):

@@ -24,6 +24,7 @@ from repro.models.layers import _repeat_kv as jrepeat
 from repro.models.layers import decode_attention as jdecode
 from repro_torch.kernels.swa_attn import ops, swa_attn
 from repro_torch.models import layers as L
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

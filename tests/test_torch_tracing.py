@@ -30,6 +30,7 @@ from repro_torch.data.pipeline import load_task_datasets
 from repro_torch.kernels.fedagg import fedagg
 from repro_torch.utils import pytree as pt
 from repro_torch.utils import tracing
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
